@@ -1,0 +1,19 @@
+"""gp_tpu_torch — the exact GP of gp_tpu on PyTorch and CUDA.
+
+A port of gp_tpu (JAX, TPU) to PyTorch on an NVIDIA H100.  The SE
+covariance builds run through a hand-written CUDA kernel
+(csrc/se_tile.cu), built with nvcc at first use on a CUDA tensor.
+Entry points run on CUDA unless the caller passes device="cpu".
+
+    from gp_tpu_torch import GP
+    gp = GP(X, y)                # CUDA, float32
+    nll = gp.train()
+    mu, s2 = gp.batch_predict(Xs)
+"""
+
+from .config import INF, default_dtype
+from .models.exact import GP
+from .ops.kernels import KERNELS, SE_ARD, SE_ISO, get_kernel
+
+__all__ = ["GP", "SE_ARD", "SE_ISO", "KERNELS", "get_kernel", "INF",
+           "default_dtype"]
