@@ -12,9 +12,11 @@ line:
   device     the card's name and `nvidia-smi` power limit (also printed
              raw, as nvidia-smi gives it)
   build      seconds to build the kernels, ptxas register/spill report
-  kernel     each kernel against its plain PyTorch version, float32 and
-             float64, at the main path's shape (N = 8000, d = 24) and at
-             ragged shapes: max abs error, the largest error over its
+  unported_bounds  the bound of each TPU kernel still to port (K3-K5)
+  kernel     each kernel in each covariance form (se, m52, m32, rq at
+             alpha 0.7 and 50) against its plain PyTorch version, float32
+             and float64, at the main path's shape (N = 8000, d = 24) and
+             at ragged shapes: max abs error, the largest error over its
              entry's rounding bound, CUDA-event times, bound
   main_path  GP(X, y).train() on CUDA float32 at N = 8000, d = 24, then
              batch_predict and both *_with_grad: NLL, evaluations, fit
@@ -25,11 +27,19 @@ line:
              f64 gradient at the f32 end point, and where the two fits'
              trajectories part
   fd_check   central finite differences (f64) against the input gradients
-  cpu_parity the card against the CPU in f64 on a 600-point posterior
+  main_path_matern52, breakdown_matern52, fd_check_matern52
+             the same three for GP(X, y, kernel="matern52"), whose
+             gradient is the vjp of the K1 build at Q = K^-1 - a a^T
+  main_path_matern32, main_path_rq
+             the fit and predictions with the other two kernel families
+  cpu_parity the card against the CPU in f64 on a 600-point posterior,
+             for se_ard and the six Matern/RQ specs
 
-then the `kernels` line (every ported kernel, what it replaces, its
-launches on the main path, times and bound) and, last, the result line
-{"ok": true, "device": {...}}.
+Each main path runs with the launch counts set to 0 just before it and
+read just after; it must have gone through its own form of K1 and K2 and
+no other.  Then comes the `kernels` line (every ported kernel and form,
+what it replaces, its launches on its main path, times and bound) and,
+last, the result line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -51,6 +61,18 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 
 N_TRAIN, N_TEST, DIM, SEED = 8000, 1000, 24, 42
 N_GRAD = 256
+
+# the covariance form each kernel family's builds go through
+FORM_OF = {"se_ard": "se", "matern52": "m52", "matern32": "m32",
+           "rq": "rq"}
+# (form, p1) checked in the kernel phase; RQ at a small and a large alpha
+KERNEL_CASES = [("se", 1.0), ("m52", 1.0), ("m32", 1.0), ("rq", 0.7),
+                ("rq", 50.0)]
+# operations per output entry beside the cross term, each sqrt, log1p and
+# exp counted as one: expansion and clamp (3), then the map
+MAP_OPS = {"se": 2, "m52": 10, "m32": 7, "rq": 6}
+NEW_SPECS = ("matern52", "matern52_iso", "matern32", "matern32_iso", "rq",
+             "rq_iso")
 
 
 def emit(phase: str, **kv) -> None:
@@ -81,18 +103,52 @@ def cuda_ms(torch, fn, iters: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def se_bound_ms(m: int, n: int, d: int, dtype: str, symmetric: bool):
-    """Least time of one SE build: each input read once, the output
-    written once; 2 m n d flops of cross term, 2 (m + n) d of norms and
-    5 per output (expansion, clamp, scale, exp)."""
+def kernel_name(form: str, symmetric: bool) -> str:
+    base = "se_tile_diag" if symmetric else "se_tile"
+    return base if form == "se" else f"{base}_{form}"
+
+
+def se_bound_ms(m: int, n: int, d: int, dtype: str, symmetric: bool,
+                form: str = "se"):
+    """Least time of one build: each input read once, the output written
+    once; 2 m n d flops of cross term, 2 (m + n) d of norms, and per
+    output 3 for the expansion and clamp plus MAP_OPS[form] for the map
+    (SE: scale, exp)."""
     size = 4 if dtype == "float32" else 8
     rows_in = m if symmetric else m + n
-    nbytes = size * (rows_in * d + m * n + 1 + (m if symmetric else 0))
-    flops = 2 * m * n * d + 2 * rows_in * d + 5 * m * n
+    nbytes = size * (rows_in * d + m * n + 1 + (form == "rq")
+                     + (m if symmetric else 0))
+    flops = 2 * m * n * d + 2 * rows_in * d + (3 + MAP_OPS[form]) * m * n
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+def chol_bound_ms(b: int, inverse: bool):
+    """Least time of one b x b float32 block Cholesky, the kernels still
+    to port (gp_tpu/ops/pallas_chol.py): b^3 / 3 flops for the factor (K4
+    _chol_kernel, K5 _chol_panel_kernel), as much again for the inverse
+    (K3 _chol_inv_kernel); the block read once, L (and L^-1) written once.
+    Plain FMAs: TF32 tensor cores are off in the port."""
+    flops = (2 if inverse else 1) * b ** 3 / 3
+    nbytes = 4 * b * b * (3 if inverse else 2)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def phase_unported_bounds() -> None:
+    """Bounds of the TPU kernels not ported yet, at gp_tpu's block sizes
+    (b = 128: blocked.py's base_block; b = 1024: its panel)."""
+    bounds = {}
+    for name, inverse in (("K3_chol_inv", True), ("K4_chol", False),
+                          ("K5_chol_panel", False)):
+        for b in (128, 1024):
+            ms, by = chol_bound_ms(b, inverse)
+            bounds[f"{name}_b{b}"] = {"bound_ms": ms, "bound_by": by}
+    emit("unported_bounds", dtype="float32", bounds=bounds)
 
 
 def phase_device(torch) -> dict:
@@ -121,12 +177,14 @@ def phase_build() -> None:
 
 
 def phase_kernels(torch, X) -> dict:
-    """Each kernel against its plain version; times at the main shape.
+    """Each kernel in each form against its plain version; times at the
+    main shape.
 
     Every entry is held to its own rounding bound (se_tile.rounding_bound),
-    a relative error of about eps (2 d + 4) (|a|^2 + |b|^2): 1.3e-5 at the
-    main shape in float32.  The inverse lengthscales 1 / (std sqrt(d)) put
-    |a - b|^2 near 2, so the entries are O(sf2) and a wrong entry shows."""
+    for SE a relative error of about eps (2 d + 4) (|a|^2 + |b|^2): 1.3e-5
+    at the main shape in float32.  The inverse lengthscales 1 / (std
+    sqrt(d)) put |a - b|^2 near 2, so the entries are O(sf2) and a wrong
+    entry shows."""
     from gp_tpu_torch.ops import se_tile
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED)
@@ -149,44 +207,52 @@ def phase_kernels(torch, X) -> dict:
             xs = x1[:min(m, n)]
             dvals = torch.full((xs.shape[0],), 1.3 + 0.01, dtype=dtype,
                                device=dev)
-            k2 = lambda: se_tile.se_matrix(inv_l, sf2, x1, x2)
-            p2 = lambda: se_tile.se_matrix_plain(inv_l, sf2, x1, x2)
-            k1 = lambda: se_tile.se_matrix_diag(inv_l, sf2, xs, dvals)
-            p1 = lambda: se_tile.se_matrix_diag_plain(inv_l, sf2, xs, dvals)
-            for name, kern, plain, rows, xa, xb in (
-                    ("se_tile_diag", k1, p1, (xs.shape[0],) * 2, xs, xs),
-                    ("se_tile", k2, p2, (m, n), x1, x2)):
-                out = kern()
-                torch.cuda.synchronize()
-                ref = plain()
-                check(tuple(out.shape) == rows, f"{name} shape")
-                bound = se_tile.rounding_bound(inv_l, sf2, xa, xb, ref)
-                err = (out - ref).abs()
-                ratio = float((err / bound).max())
-                check(math.isfinite(ratio) and ratio <= 1.0,
-                      f"{name} {dname} {m}x{n}x{d}: an entry is off by "
-                      f"{ratio} times its rounding bound")
-                if name == "se_tile_diag":
-                    check(bool(torch.equal(out.diagonal(), dvals)),
-                          f"{name} {dname}: diagonal is not dvals")
-                rec = {"kernel": name, "dtype": dname, "m": rows[0],
-                       "n": rows[1], "d": d, "max_abs_err": float(err.max()),
-                       "max_err_over_bound": ratio,
-                       "median_bound_over_k": float(
-                           (bound / ref.abs()).median()),
-                       "median_k_over_sf2": float(ref.median()) / 1.3}
-                del bound, err
-                if label == "main":
-                    sym = name == "se_tile_diag"
-                    bound_ms, by = se_bound_ms(rows[0], rows[1], d, dname,
-                                               sym)
-                    rec.update(ms=cuda_ms(torch, kern),
-                               plain_ms=cuda_ms(torch, plain, iters=5),
-                               bound_ms=bound_ms, bound_by=by)
-                    timed[(name, dname)] = rec
-                emit("kernel", **rec, launches=dict(se_tile.launches))
-            del out, ref
-            torch.cuda.empty_cache()
+            for form, alpha in KERNEL_CASES:
+                p1 = torch.tensor(alpha, dtype=dtype, device=dev)
+                k2 = lambda: se_tile.se_matrix(inv_l, sf2, x1, x2, form, p1)
+                q2 = lambda: se_tile.se_matrix_plain(inv_l, sf2, x1, x2,
+                                                     form, p1)
+                k1 = lambda: se_tile.se_matrix_diag(inv_l, sf2, xs, dvals,
+                                                    form, p1)
+                q1 = lambda: se_tile.se_matrix_diag_plain(inv_l, sf2, xs,
+                                                          dvals, form, p1)
+                for sym, kern, plain, rows, xa, xb in (
+                        (True, k1, q1, (xs.shape[0],) * 2, xs, xs),
+                        (False, k2, q2, (m, n), x1, x2)):
+                    name = kernel_name(form, sym)
+                    out = kern()
+                    torch.cuda.synchronize()
+                    ref = plain()
+                    check(tuple(out.shape) == rows, f"{name} shape")
+                    bound = se_tile.rounding_bound(inv_l, sf2, xa, xb, ref,
+                                                   form, p1)
+                    err = (out - ref).abs()
+                    ratio = float((err / bound).max())
+                    check(math.isfinite(ratio) and ratio <= 1.0,
+                          f"{name} {dname} {m}x{n}x{d} p1={alpha}: an "
+                          f"entry is off by {ratio} times its rounding "
+                          f"bound")
+                    if sym:
+                        check(bool(torch.equal(out.diagonal(), dvals)),
+                              f"{name} {dname}: diagonal is not dvals")
+                    rec = {"kernel": name, "form": form, "p1": alpha,
+                           "dtype": dname, "m": rows[0], "n": rows[1],
+                           "d": d, "max_abs_err": float(err.max()),
+                           "max_err_over_bound": ratio,
+                           "median_bound_over_k": float(
+                               (bound / ref.abs()).median()),
+                           "median_k_over_sf2": float(ref.median()) / 1.3}
+                    del bound, err
+                    if label == "main":
+                        bound_ms, by = se_bound_ms(rows[0], rows[1], d,
+                                                   dname, sym, form)
+                        rec.update(ms=cuda_ms(torch, kern),
+                                   plain_ms=cuda_ms(torch, plain, iters=5),
+                                   bound_ms=bound_ms, bound_by=by)
+                        timed[(name, dname, alpha)] = rec
+                    emit("kernel", **rec)
+                    del out, ref
+                torch.cuda.empty_cache()
     return timed
 
 
@@ -195,30 +261,95 @@ def _rmse(a, b) -> float:
     return float(np.sqrt(np.mean((np.asarray(a) - np.asarray(b)) ** 2)))
 
 
-def phase_main_path(torch, Xtr, ytr, Xte, yte) -> dict:
+class traced_fits:
+    """Records each objective evaluation's value and log sigma_n (in the
+    standardized units the optimizer sees) of the fits run inside it, and
+    the host clock as each evaluation starts.  The records stay on the
+    card until the fit ends: no extra sync."""
+
+    def __enter__(self):
+        from gp_tpu_torch.models import exact
+        self.exact, self.objective_vg = exact, exact.objective_vg
+        self.rows, self.stamps = [], []
+
+        def recorded(kernel, noise_free, vec, *rest):
+            self.stamps.append(time.perf_counter())
+            f, g = self.objective_vg(kernel, noise_free, vec, *rest)
+            self.rows.append((f.detach(), vec[-2].detach()))
+            return f, g
+        exact.objective_vg = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.exact.objective_vg = self.objective_vg
+
+    def take(self):
+        """(f, log sn) per evaluation as float64 lists; clears the record."""
+        import torch
+        f = torch.stack([r[0].double().cpu() for r in self.rows])
+        ls = torch.stack([r[1].double().cpu() for r in self.rows])
+        self.rows = []
+        return f.tolist(), ls.tolist()
+
+
+def _launched(se_tile) -> dict:
+    return {w: dict(by_form) for w, by_form in se_tile.launches.items()}
+
+
+def phase_main_path(torch, Xtr, ytr, Xte, yte, kernel: str = "se_ard",
+                    phase: str = "main_path") -> dict:
+    """GP(X, y, kernel).train() and the predictions on the card, with the
+    launch counts set to 0 just before and read just after: K1 and K2 of
+    the kernel's form, and no other form, must carry the path."""
     import numpy as np
     from gp_tpu_torch import GP
     from gp_tpu_torch.ops import se_tile
     from gp_tpu_torch.optim.lbfgsb import explain_result
 
+    form = FORM_OF[kernel]
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 2**30
     se_tile.reset_launches()
-    t0 = time.perf_counter()
-    gp = GP(Xtr, ytr)
-    check(gp.device.type == "cuda" and gp.dtype == torch.float32,
-          "GP(X, y) must default to CUDA float32")
-    nll = gp.train()
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    after_train = dict(se_tile.launches)
+    with traced_fits() as trace:
+        t0 = time.perf_counter()
+        gp = GP(Xtr, ytr) if kernel == "se_ard" \
+            else GP(Xtr, ytr, kernel=kernel)
+        check(gp.device.type == "cuda" and gp.dtype == torch.float32,
+              f"GP(X, y, kernel={kernel!r}) must default to CUDA float32")
+        nll = gp.train()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    fit_s = t1 - t0
+    after_train = _launched(se_tile)
+    # host clock between evaluation starts: one evaluation and the
+    # optimizer's host work; before the first, the model and NLL probes;
+    # after the last, that evaluation, set_k and the final NLL.  The rate
+    # from the second evaluation on leaves out one-time costs of the
+    # first (lazy imports and module loads)
+    gaps = np.diff(trace.stamps) * 1e3
+    eval_clock = {"before_first_s": trace.stamps[0] - t0,
+                  "after_last_s": t1 - trace.stamps[-1],
+                  "evals_per_s_from_second": (len(trace.stamps) - 1)
+                  / (t1 - trace.stamps[1]),
+                  "gap_ms_median": float(np.median(gaps)),
+                  "gap_ms_p90": float(np.quantile(gaps, 0.9)),
+                  "gap_ms_max": float(gaps.max()),
+                  "gap_max_at_eval": int(gaps.argmax()) + 2,
+                  "gaps_over_100ms": int((gaps > 100).sum())}
+    mem_gb = {"before": base_gb,
+              "peak": torch.cuda.max_memory_allocated() / 2**30,
+              "reserved": torch.cuda.memory_reserved() / 2**30}
     evals = int(gp.last_opt_result.evals)
 
-    counts = {}
+    counts, call_s = {}, {}
 
     def counted(label, fn):
-        before = se_tile.launches["se_matrix"]
+        before = se_tile.launches["se_matrix"][form]
+        t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        counts[label] = se_tile.launches["se_matrix"] - before
+        call_s[label] = time.perf_counter() - t
+        counts[label] = se_tile.launches["se_matrix"][form] - before
         return out
 
     t1 = time.perf_counter()
@@ -228,7 +359,7 @@ def phase_main_path(torch, Xtr, ytr, Xte, yte) -> dict:
                      lambda: gp.batch_predict_y_with_grad(Xte[:N_GRAD]))
     sg, gs = counted("batch_predict_s2_with_grad",
                      lambda: gp.batch_predict_s2_with_grad(Xte[:N_GRAD]))
-    launches = dict(se_tile.launches)
+    launches = _launched(se_tile)
 
     outs = {"mu": mu, "s2": s2, "y_wg": yg, "gy": gy, "s2_wg": sg,
             "gs2": gs}
@@ -246,27 +377,38 @@ def phase_main_path(torch, Xtr, ytr, Xte, yte) -> dict:
     # data gets a held-out RMSE of about half the constant predictor's,
     # in f32 and f64 (scripts/fit_basins.py at N = 1500 and 4000); 0.6
     # fails a fit that learned nothing
-    check(rmse < 0.6 * rmse_const, f"held-out RMSE {rmse} not below 0.6 "
-          f"of the constant predictor's {rmse_const}")
-    check(after_train["se_matrix_diag"] >= evals,
-          f"K1 launched {after_train['se_matrix_diag']} times for {evals} "
+    check(rmse < 0.6 * rmse_const, f"{kernel}: held-out RMSE {rmse} not "
+          f"below 0.6 of the constant predictor's {rmse_const}")
+    k1 = after_train["se_matrix_diag"][form]
+    check(k1 >= evals, f"K1 ({form}) launched {k1} times for {evals} "
           f"objective evaluations")
-    check(after_train["se_matrix"] >= 1, "K2 not launched in set_k")
+    check(after_train["se_matrix"][form] >= 1,
+          f"K2 ({form}) not launched in set_k")
     for label, c in counts.items():
-        check(c >= 1, f"K2 not launched in {label}")
-    res = {"nll": nll, "evals": evals, "fit_s": fit_s,
-           "evals_per_s": evals / fit_s,
+        check(c >= 1, f"K2 ({form}) not launched in {label}")
+    others = {w: {f: c for f, c in by_form.items() if f != form and c}
+              for w, by_form in launches.items()}
+    check(not any(others.values()),
+          f"{kernel}: launches of another form on its path: {others}")
+    res = {"kernel": kernel, "form": form, "nll": nll, "evals": evals,
+           "fit_s": fit_s, "evals_per_s": evals / fit_s,
            "status": explain_result(gp.last_opt_result),
            "rmse": rmse, "rmse_const": rmse_const,
            "predict_1000_s": pred_s, "launches": launches,
            "launches_train": after_train, "k2_launches_by_call": counts,
-           "hyp_moved": moved}
-    emit("main_path", **res)
-    return {"gp": gp, "nll": nll, "launches": launches, "evals": evals}
+           "call_s": call_s,
+           "hyp_moved": moved, "hyp": hyp.tolist(),
+           "eval_clock": eval_clock, "memory_gb": mem_gb}
+    emit(phase, **res)
+    return {"gp": gp, "nll": nll, "launches": launches, "evals": evals,
+            "form": form}
 
 
-def phase_breakdown(torch, gp) -> None:
-    """Stages of one NLL+gradient evaluation at the fitted hyps."""
+def phase_breakdown(torch, gp, phase: str = "breakdown") -> None:
+    """Stages of one NLL+gradient evaluation at the fitted hyps.  A spec
+    with a structured gradient contraction (SE) times it; any other times
+    Q = K^-1 - alpha alpha^T and the vjp of the K1 build at Q, the two
+    steps of the objective's generic branch."""
     from gp_tpu_torch.models.base import hyp_mean, hyp_sn2
     from gp_tpu_torch.models.exact import objective_vg
     from gp_tpu_torch.ops.blocked import spd_inv_from_chol
@@ -287,42 +429,32 @@ def phase_breakdown(torch, gp) -> None:
         "cholesky": lambda: cholesky(K),
         "cholesky_inverse": lambda: spd_inv_from_chol(L),
         "alpha_matvec": lambda: Kinv @ r,
-        "grad_contraction": lambda: kern.k_noise_vjp_q(
-            chyp, sn2, x, n, K, Kinv, alpha),
-        "objective_total": lambda: objective_vg(kern, False, vec, x, y),
     }
-    emit("breakdown", n=n, dtype=str(x.dtype).split(".")[-1],
-         ms={k: cuda_ms(torch, f, iters=5, warm=1)
-             for k, f in stages.items()})
-
-
-class traced_fits:
-    """Records each objective evaluation's value and log sigma_n (in the
-    standardized units the optimizer sees) of the fits run inside it.
-    The records stay on the card until the fit ends: no extra sync."""
-
-    def __enter__(self):
-        from gp_tpu_torch.models import exact
-        self.exact, self.objective_vg = exact, exact.objective_vg
-        self.rows = []
-
-        def recorded(kernel, noise_free, vec, *rest):
-            f, g = self.objective_vg(kernel, noise_free, vec, *rest)
-            self.rows.append((f.detach(), vec[-2].detach()))
-            return f, g
-        exact.objective_vg = recorded
-        return self
-
-    def __exit__(self, *exc):
-        self.exact.objective_vg = self.objective_vg
-
-    def take(self):
-        """(f, log sn) per evaluation as float64 lists; clears the record."""
-        import torch
-        f = torch.stack([r[0].double().cpu() for r in self.rows])
-        ls = torch.stack([r[1].double().cpu() for r in self.rows])
-        self.rows = []
-        return f.tolist(), ls.tolist()
+    if kern.k_noise_vjp_q is not None:
+        stages["grad_contraction"] = lambda: kern.k_noise_vjp_q(
+            chyp, sn2, x, n, K, Kinv, alpha)
+    else:
+        leaves = (chyp.detach().requires_grad_(True),
+                  sn2.detach().requires_grad_(True))
+        with torch.enable_grad():
+            K_build = kern.k_noise(*leaves, x, n)
+        Q = torch.addr(Kinv, alpha, alpha, alpha=-1.0)
+        # the objective writes Q over K^-1 in place: the same bytes
+        stages["q_form"] = lambda: torch.addr(Kinv, alpha, alpha,
+                                              alpha=-1.0)
+        stages["generic_vjp"] = lambda: torch.autograd.grad(
+            K_build, leaves, Q, retain_graph=True)
+    stages["objective_total"] = lambda: objective_vg(kern, False, vec, x, y)
+    ms = {k: cuda_ms(torch, f, iters=5, warm=1) for k, f in stages.items()}
+    # device memory one evaluation takes beyond what is already held
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    objective_vg(kern, False, vec, x, y)
+    torch.cuda.synchronize()
+    extra_gb = (torch.cuda.max_memory_allocated() - held) / 2**30
+    emit(phase, kernel=kern.name, n=n, dtype=str(x.dtype).split(".")[-1],
+         ms=ms, objective_extra_memory_gb=extra_gb)
 
 
 def _projected_grad(torch, gp, vec, g) -> float:
@@ -356,7 +488,7 @@ def phase_f64(torch, Xtr, ytr, Xte, yte, gp32, nll32: float) -> object:
         nll = gp.train()
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
-        launches = dict(se_tile.launches)
+        launches = _launched(se_tile)
         f64, ls64 = trace.take()
         # the f32 fit again, for its trajectory (the main path's run is
         # left as a user runs it)
@@ -397,14 +529,14 @@ def phase_f64(torch, Xtr, ytr, Xte, yte, gp32, nll32: float) -> object:
          first_eval_apart={"1e-6": apart(1e-6), "1e-3": apart(1e-3)},
          trajectory={"f32": pick(f32, ls32), "f64": pick(f64, ls64)})
     check(math.isfinite(nll), "f64 NLL not finite")
-    check(launches["se_matrix_diag"] >= evals,
+    check(launches["se_matrix_diag"]["se"] >= evals,
           "f64 fit did not go through the f64 K1 kernel")
     check(rel <= 1e-3, f"f32 NLL {nll32} not within 1e-3 of the f64 NLL "
           f"{nll64_at_32} at the same hyps")
     return gp
 
 
-def phase_fd(torch, gp64, Xte) -> None:
+def phase_fd(torch, gp64, Xte, phase: str = "fd_check") -> None:
     """Central differences in f64 against the returned input gradients."""
     import numpy as np
     pts = np.asarray(Xte[:4], np.float64)
@@ -422,31 +554,55 @@ def phase_fd(torch, gp64, Xte) -> None:
     rel = lambda g, fd: float(np.max(np.linalg.norm(g - fd, axis=1)
                                      / np.linalg.norm(fd, axis=1)))
     ry, rs = rel(gy, fd_y), rel(gs, fd_s)
-    emit("fd_check", h=h, rel_err_y=ry, rel_err_s2=rs, tol=1e-5)
+    emit(phase, kernel=gp64.kernel.name, h=h, rel_err_y=ry, rel_err_s2=rs,
+         tol=1e-5)
     check(ry <= 1e-5 and rs <= 1e-5,
-          f"input gradients vs central differences: {ry}, {rs} > 1e-5")
+          f"{gp64.kernel.name} input gradients vs central differences: "
+          f"{ry}, {rs} > 1e-5")
 
 
-def phase_cpu_parity(torch, gp64, Xtr, ytr, Xte) -> None:
+def parity_hyps(fit_hyp, kernel: str, ytr):
+    """Hyps for `kernel` from its family's ARD fit on the card: an iso
+    spec takes the mean log lengthscale, and the noise is raised to at
+    least 0.1 std(y), so that the posteriors compared are well
+    conditioned (the f32 fits end with the noise at its 1e-3 floor)."""
+    import numpy as np
+    h = np.array(fit_hyp, np.float64)
+    if kernel.endswith("_iso"):
+        h = np.concatenate([[h[:DIM].mean()], h[DIM:]])
+    h[-2] = max(h[-2], math.log(0.1 * float(np.std(ytr))))
+    return h
+
+
+def phase_cpu_parity(torch, gp64, paths, Xtr, ytr, Xte) -> None:
     """The card against the CPU (plain versions, LAPACK) in f64, on a
-    600-point posterior at the f64 fit's hyps."""
+    600-point posterior: se_ard at the f64 fit's hyps, each Matern/RQ
+    spec at its family's fitted hyps (parity_hyps)."""
     import numpy as np
     from gp_tpu_torch.utils.convert import gp_from_state
-    state = {"x": Xtr[:600], "y": ytr[:600], "hyps": gp64.get_hyp(),
-             "kernel": "se_ard", "dtype": "float64"}
-    gc = gp_from_state(state, device="cuda")
-    gh = gp_from_state(state, device="cpu")
+    hyps = {"se_ard": gp64.get_hyp()}
+    for kernel in NEW_SPECS:
+        family = kernel.removesuffix("_iso")
+        hyps[kernel] = parity_hyps(paths[family]["gp"].get_hyp(), kernel,
+                                   ytr)
     pts = Xte[:200]
     rel = lambda a, b: float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
-    errs = {"nll": abs(gc.nll() - gh.nll()) / abs(gh.nll())}
-    for name in ("batch_predict", "batch_predict_y_with_grad",
-                 "batch_predict_s2_with_grad"):
-        for i, (a, b) in enumerate(zip(getattr(gc, name)(pts),
-                                       getattr(gh, name)(pts))):
-            errs[f"{name}[{i}]"] = rel(a.cpu().numpy(), b.numpy())
-    emit("cpu_parity", n=600, rel_err=errs, tol=1e-8)
-    check(max(errs.values()) <= 1e-8,
-          f"card vs CPU (f64) beyond 1e-8: {errs}")
+    errs = {}
+    for kernel, h in hyps.items():
+        state = {"x": Xtr[:600], "y": ytr[:600], "hyps": h,
+                 "kernel": kernel, "dtype": "float64"}
+        gc = gp_from_state(state, device="cuda")
+        gh = gp_from_state(state, device="cpu")
+        e = {"nll": abs(gc.nll() - gh.nll()) / abs(gh.nll())}
+        for name in ("batch_predict", "batch_predict_y_with_grad",
+                     "batch_predict_s2_with_grad"):
+            for i, (a, b) in enumerate(zip(getattr(gc, name)(pts),
+                                           getattr(gh, name)(pts))):
+                e[f"{name}[{i}]"] = rel(a.cpu().numpy(), b.numpy())
+        errs[kernel] = e
+    worst = max(v for e in errs.values() for v in e.values())
+    emit("cpu_parity", n=600, rel_err=errs, max_rel_err=worst, tol=1e-8)
+    check(worst <= 1e-8, f"card vs CPU (f64) beyond 1e-8: {errs}")
 
 
 def main() -> int:
@@ -461,40 +617,60 @@ def main() -> int:
         print(f"chip_smoke: gp_tpu_torch not found beside the script: "
               f"{exc}", file=sys.stderr)
         return 2
+    from gp_tpu_torch.utils.convert import gp_from_state
     from gp_tpu_torch.utils.synth import make_data
     try:
         dev = phase_device(torch)
         phase_build()
+        phase_unported_bounds()
         X, y = make_data(N_TRAIN + N_TEST, d=DIM, seed=SEED)
         Xtr, ytr, Xte, yte = X[:N_TRAIN], y[:N_TRAIN], X[N_TRAIN:], \
             y[N_TRAIN:]
         timed = phase_kernels(torch, Xtr)
-        main_res = phase_main_path(torch, Xtr, ytr, Xte, yte)
-        phase_breakdown(torch, main_res["gp"])
-        gp64 = phase_f64(torch, Xtr, ytr, Xte, yte, main_res["gp"],
-                         main_res["nll"])
+        paths = {"se_ard": phase_main_path(torch, Xtr, ytr, Xte, yte)}
+        phase_breakdown(torch, paths["se_ard"]["gp"])
+        gp64 = phase_f64(torch, Xtr, ytr, Xte, yte, paths["se_ard"]["gp"],
+                         paths["se_ard"]["nll"])
         phase_fd(torch, gp64, Xte)
-        phase_cpu_parity(torch, gp64, Xtr, ytr, Xte)
+        paths["matern52"] = phase_main_path(torch, Xtr, ytr, Xte, yte,
+                                            "matern52", "main_path_matern52")
+        phase_breakdown(torch, paths["matern52"]["gp"], "breakdown_matern52")
+        gpm64 = gp_from_state(
+            {"x": Xtr, "y": ytr, "kernel": "matern52", "dtype": "float64",
+             "hyps": parity_hyps(paths["matern52"]["gp"].get_hyp(),
+                                 "matern52", ytr)}, device="cuda")
+        phase_fd(torch, gpm64, Xte, "fd_check_matern52")
+        del gpm64
+        for kernel in ("matern32", "rq"):
+            paths[kernel] = phase_main_path(torch, Xtr, ytr, Xte, yte,
+                                            kernel, f"main_path_{kernel}")
+        phase_cpu_parity(torch, gp64, paths, Xtr, ytr, Xte)
+        src = "gp_tpu_torch/csrc/se_tile.cu"
+        kernels = []
+        for kernel, path in paths.items():
+            form = path["form"]
+            for sym, wrapper, line in ((True, "se_matrix_diag", 89),
+                                       (False, "se_matrix", 71)):
+                name = kernel_name(form, sym)
+                rec = timed[(name, "float32", 0.7 if form == "rq" else 1.0)]
+                launches = path["launches"][wrapper][form]
+                check(launches > 0, f"{name} was not launched on the "
+                      f"{kernel} main path")
+                kernels.append({
+                    "name": name, "route": "cuda", "source": src,
+                    "replaces": f"gp_tpu/ops/pallas_kernels.py:{line}",
+                    "launches": launches,
+                    "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                    "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                    "bound_by": rec["bound_by"],
+                    # no single PyTorch call computes a covariance matrix
+                    "library_ms": None, "form": form, "p1": rec["p1"],
+                    "main_path": kernel,
+                    "shape": [rec["m"], rec["n"], rec["d"]],
+                    "dtype": "float32"})
     except CheckFailed as exc:
         print(f"chip_smoke: check failed: {exc}", file=sys.stderr)
         return 1
-    src = "gp_tpu_torch/csrc/se_tile.cu"
-    replaces = {"se_tile_diag": "gp_tpu/ops/pallas_kernels.py:89",
-                "se_tile": "gp_tpu/ops/pallas_kernels.py:71"}
-    wrapper = {"se_tile_diag": "se_matrix_diag", "se_tile": "se_matrix"}
-    kernels = []
-    for name in ("se_tile_diag", "se_tile"):
-        rec = timed[(name, "float32")]
-        kernels.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces[name],
-            "launches": main_res["launches"][wrapper[name]],
-            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"],
-            # no single PyTorch call computes the SE covariance matrix
-            "library_ms": None,
-            "shape": [rec["m"], rec["n"], rec["d"]], "dtype": "float32"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["name"], "count": dev["count"]}}),

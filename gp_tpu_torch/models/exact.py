@@ -6,7 +6,9 @@ exact.py:186-215):
 
   objective   K + sn2 I in one kernel pass (K1, ops/se_tile.py), library
               Cholesky, explicit inverse, alpha = K^-1 r, and the
-              structured gradient contraction (KernelSpec.k_noise_vjp_q);
+              structured gradient contraction (KernelSpec.k_noise_vjp_q,
+              SE) or the vjp of the K1 build at Q = K^-1 - alpha alpha^T
+              (Matern, RQ);
   posterior   set_k: K(X, X) through K2, then the sqrt(10) noise-inflation
               ladder until the factorization succeeds (GP.cpp:423-444);
   prediction  the cross-covariance K(X*, X) through K2, then solves.
@@ -86,18 +88,25 @@ def nll_vg_raw(kernel: KernelSpec, hyp, x, y):
         g_cov_i = 0.5 sum(Q o dK/dtheta_i);  g_noise = sn2 tr(Q);
         g_mean = -sum(alpha)
 
+    The SE specs contract the gradient without forming Q
+    (KernelSpec.k_noise_vjp_q); any other spec takes gp_tpu's generic
+    branch (exact.py:203-209): Q is formed, in place of K^-1, and the vjp
+    of the k_noise build at Q gives the (chyp, sn2) cotangents.
+
     NaN/inf propagate (the caller sanitizes).  Cholesky only.  No host
     sync: every scalar stays on the device."""
     n = x.shape[0]
     _check_n(n)
-    if kernel.k_noise_vjp_q is None:
-        raise NotImplementedError(
-            f"kernel {kernel.name!r} has no structured gradient "
-            f"contraction; the extra kernel families are ROADMAP module 8")
     nc = kernel.num_hyp(x.shape[1])
     chyp = hyp[:nc]
     sn2 = hyp_sn2(hyp)
-    K = get_k_noise(kernel)(chyp, sn2, x, n)
+    generic = kernel.k_noise_vjp_q is None
+    # the generic branch differentiates the build at leaves of its own
+    leaves = (chyp.detach().requires_grad_(generic),
+              sn2.detach().requires_grad_(generic))
+    with torch.set_grad_enabled(generic):
+        K_build = get_k_noise(kernel)(*leaves, x, n)
+    K = K_build.detach()
     L = cholesky(K)
     Kinv = spd_inv_from_chol(L)
     r = y - hyp_mean(hyp)
@@ -105,7 +114,15 @@ def nll_vg_raw(kernel: KernelSpec, hyp, x, y):
     alpha = Kinv @ r
     value = (0.5 * torch.dot(r, alpha) + 0.5 * chol_logdet(L)
              + _half_n_log_2pi(n))
-    g_cov_t, g_sn2 = kernel.k_noise_vjp_q(chyp, sn2, x, n, K, Kinv, alpha)
+    if generic:
+        del L
+        # Q = Kinv - alpha alpha^T, written over Kinv (dead from here)
+        Q = Kinv.addr_(alpha, alpha, alpha=-1.0)
+        g_cov_t, g_sn2 = torch.autograd.grad(K_build, leaves, Q)
+        del Q, Kinv, K_build
+    else:
+        g_cov_t, g_sn2 = kernel.k_noise_vjp_q(chyp, sn2, x, n, K, Kinv,
+                                              alpha)
     g_sn = sn2 * g_sn2        # = sn2 (tr(Kinv) - a^T a)
     g_mean = -torch.sum(alpha)
     grad = torch.cat([0.5 * g_cov_t,

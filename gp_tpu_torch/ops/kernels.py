@@ -8,7 +8,9 @@ Hyperparameter packing is identical to gp_tpu's (and the reference's):
 `k` and `k_noise` of both specs are the kernel-backed autograd Functions
 of ops/se_tile.py, as gp_tpu's `_register_pallas_variants` makes its Pallas
 builds the default: on CUDA every build is the hand-written tile kernel,
-on the CPU its plain version.  Points are rows: x is (n, d).
+on the CPU its plain version.  Points are rows: x is (n, d).  The
+Matern and RQ specs are in ops/kernels_extra.py, which adds them to
+KERNELS when the package is imported.
 
 `default_hyp` and `hyp_range` are host-side numpy, computed once per
 model from the data.
@@ -41,19 +43,29 @@ class KernelSpec(NamedTuple):
     k_noise: Callable | None = None
     # (chyp, sn2, x, n_real, K, Kinv, alpha) -> (g_chyp, g_sn2): the
     # k_noise vjp contracted against the implicit cotangent
-    # Q = Kinv - alpha alpha^T without materializing Q
+    # Q = Kinv - alpha alpha^T without materializing Q.  None: the
+    # objective materializes Q and takes the vjp of k_noise at Q
     k_noise_vjp_q: Callable | None = None
 
 
+def _generic_k_noise(spec_k, spec_diag_k):
+    """K(X, X) through spec_k, then the diagonal set to diag(K0) + sn2 on
+    rows < n_real and to spec_diag_k beyond (gp_tpu kernels.py:66-73)."""
+    def k_noise(chyp, sn2, x, n_real: int):
+        K0 = spec_k(chyp, x, x)
+        ids = torch.arange(x.shape[0], device=x.device)
+        dv = torch.where(ids < n_real, torch.diagonal(K0) + sn2,
+                         spec_diag_k(chyp, x))
+        return torch.diagonal_scatter(K0, dv.to(K0.dtype))
+    return k_noise
+
+
 def get_k_noise(spec: KernelSpec) -> Callable:
-    """spec.k_noise.  gp_tpu's generic build + diagonal scatter serves
-    kernels without a fused build (the Matern/RQ extras), which wait for
-    ROADMAP module 8."""
-    if spec.k_noise is None:
-        raise NotImplementedError(
-            f"kernel {spec.name!r} has no k_noise build; the extra kernel "
-            f"families are ROADMAP module 8")
-    return spec.k_noise
+    """spec.k_noise, or the generic build + diagonal scatter for a spec
+    without a fused build (every spec of the package has one)."""
+    if spec.k_noise is not None:
+        return spec.k_noise
+    return _generic_k_noise(spec.k, spec.diag_k)
 
 
 def _se_noise_vjp_q(ard: bool):

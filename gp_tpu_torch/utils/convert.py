@@ -19,6 +19,10 @@ def gp_from_state(state: dict, device=None) -> GP:
       x (n, d), y (n,), hyps (num_hyp,)   required
       kernel  ("se_ard")   dtype (per device)   solver ("chol")
       noise_free (False)   noise_lb (1e-3)      optional
+
+    kernel is any name in ops.kernels.KERNELS: se_ard, se_iso, matern52,
+    matern32, rq and their _iso variants; hyps has that spec's num_hyp +
+    2 entries (d + 4 for rq, 5 for rq_iso).
     """
     gp = GP(np.asarray(state["x"]), np.asarray(state["y"]),
             kernel=state.get("kernel", "se_ard"), dtype=state.get("dtype"),

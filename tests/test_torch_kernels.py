@@ -215,7 +215,8 @@ def test_cpu_builds_launch_no_kernel():
     chyp = torch.zeros(4, dtype=torch.float64)
     tk.SE_ARD.k(chyp, x, x)
     tk.SE_ARD.k_noise(chyp, 0.1, x, 20)
-    assert se_tile.launches == {"se_matrix": 0, "se_matrix_diag": 0}
+    assert se_tile.launches == {w: dict.fromkeys(se_tile.FORMS, 0)
+                                for w in ("se_matrix", "se_matrix_diag")}
 
 
 
