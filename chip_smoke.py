@@ -12,7 +12,15 @@ line:
   device     the card's name and `nvidia-smi` power limit (also printed
              raw, as nvidia-smi gives it)
   build      seconds to build the kernels, ptxas register/spill report
-  unported_bounds  the bound of each TPU kernel still to port (K3-K5)
+  chol_kernels  K3 (chol_inv), K4 (cholesky_block) and K5 (cholesky_panel)
+             against their plain versions, float32 and float64, at
+             b = 32, 128, 200 and (K4, K5) 1024, K5 at w = 32 and 128:
+             error relative to max |L| and max |T|, NaN on an indefinite
+             block, CUDA-event times, bound, the library's time
+  blocked    the blocked factor and inverse at N = 8000 (padded to 8192,
+             block 1024, base 128) with the K3 leaf, with K4 and with K5
+             (w = 32) as base_fn, against cholesky_ex + cholesky_inverse:
+             errors, times and launch counts, float32 and float64
   kernel     each kernel in each covariance form (se, m52, m32, rq at
              alpha 0.7 and 50) against its plain PyTorch version, float32
              and float64, at the main path's shape (N = 8000, d = 24) and
@@ -21,11 +29,17 @@ line:
   main_path  GP(X, y).train() on CUDA float32 at N = 8000, d = 24, then
              batch_predict and both *_with_grad: NLL, evaluations, fit
              seconds, evaluations per second, held-out RMSE, launches
-  breakdown  CUDA-event times of the stages of one NLL+gradient evaluation
+  breakdown  CUDA-event times of the stages of one NLL+gradient evaluation:
+             the blocked route's factor and inverse, and the library's
+             cholesky_ex and cholesky_inverse beside them
+  route_sweep  one SE-ARD objective evaluation on each route at N from
+             1024 to 8000, float32 and float64: host enqueue, synced wall
+             and back-to-back times, the default route and the faster one
   f64_fit    the same fit in float64 on the card; the f32 NLL against
              the f64 NLL at the f32 fit's hyps; how each fit stopped, the
              f64 gradient at the f32 end point, and where the two fits'
-             trajectories part
+             trajectories part; the f64 fit again from the same start on
+             the library route, and where it parts from the blocked one
   fd_check   central finite differences (f64) against the input gradients
   main_path_matern52, breakdown_matern52, fd_check_matern52
              the same three for GP(X, y, kernel="matern52"), whose
@@ -34,12 +48,17 @@ line:
              the fit and predictions with the other two kernel families
   cpu_parity the card against the CPU in f64 on a 600-point posterior,
              for se_ard and the six Matern/RQ specs
+  blocked_vs_library  the f64 objective (value and gradient) through the
+             blocked route against the library route at N = 8000, SE-ARD
+             and Matern-5/2
 
 Each main path runs with the launch counts set to 0 just before it and
 read just after; it must have gone through its own form of K1 and K2 and
-no other.  Then comes the `kernels` line (every ported kernel and form,
-what it replaces, its launches on its main path, times and bound) and,
-last, the result line {"ok": true, "device": {...}}.
+no other, and through K3 at least 64 times per factorization (N = 8000
+factors as 8 panels of 8 leaves), and never through K4 or K5.  Then comes
+the `kernels` line (every ported kernel and form, what it replaces, its
+launches on its main path, times and bound) and, last, the result line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -103,6 +122,27 @@ def cuda_ms(torch, fn, iters: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def eval_clock(torch, fn, reps: int = 10) -> dict:
+    """Median host milliseconds to enqueue fn() and median wall
+    milliseconds to its end (a synchronize after each call, as a fit
+    does), then the CUDA-event milliseconds of calls back to back."""
+    import numpy as np
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    host, wall = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        host.append((t1 - t0) * 1e3)
+        wall.append((time.perf_counter() - t0) * 1e3)
+    return {"host_enqueue_ms": float(np.median(host)),
+            "synced_wall_ms": float(np.median(wall)),
+            "back_to_back_ms": cuda_ms(torch, fn, iters=reps, warm=0)}
+
+
 def kernel_name(form: str, symmetric: bool) -> str:
     base = "se_tile_diag" if symmetric else "se_tile"
     return base if form == "se" else f"{base}_{form}"
@@ -125,30 +165,17 @@ def se_bound_ms(m: int, n: int, d: int, dtype: str, symmetric: bool,
                                  else "operations")
 
 
-def chol_bound_ms(b: int, inverse: bool):
-    """Least time of one b x b float32 block Cholesky, the kernels still
-    to port (gp_tpu/ops/pallas_chol.py): b^3 / 3 flops for the factor (K4
-    _chol_kernel, K5 _chol_panel_kernel), as much again for the inverse
-    (K3 _chol_inv_kernel); the block read once, L (and L^-1) written once.
-    Plain FMAs: TF32 tensor cores are off in the port."""
+def chol_bound_ms(b: int, dtype: str, inverse: bool):
+    """Least time of one b x b block Cholesky (K4, K5): b^3 / 3 flops, as
+    much again for the inverse (K3); the block read once, L (and L^-1)
+    written once.  Plain FMAs: TF32 tensor cores are off in the port."""
+    size = 4 if dtype == "float32" else 8
     flops = (2 if inverse else 1) * b ** 3 / 3
-    nbytes = 4 * b * b * (3 if inverse else 2)
+    nbytes = size * b * b * (3 if inverse else 2)
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
-
-
-def phase_unported_bounds() -> None:
-    """Bounds of the TPU kernels not ported yet, at gp_tpu's block sizes
-    (b = 128: blocked.py's base_block; b = 1024: its panel)."""
-    bounds = {}
-    for name, inverse in (("K3_chol_inv", True), ("K4_chol", False),
-                          ("K5_chol_panel", False)):
-        for b in (128, 1024):
-            ms, by = chol_bound_ms(b, inverse)
-            bounds[f"{name}_b{b}"] = {"bound_ms": ms, "bound_by": by}
-    emit("unported_bounds", dtype="float32", bounds=bounds)
 
 
 def phase_device(torch) -> dict:
@@ -170,8 +197,14 @@ def phase_device(torch) -> dict:
 def phase_build() -> None:
     from gp_tpu_torch.ops import _build
     seconds, log = _build.build(ptxas_info=True)
-    report = [ln.strip() for ln in log.splitlines()
-              if "registers" in ln or "spill" in ln]
+    # one entry per kernel: its mangled name, then ptxas's spill and
+    # register lines for it
+    report, name = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif name and ("registers" in ln or "spill" in ln):
+            report.append(f"{name}: {ln.strip()}")
     emit("build", seconds=seconds, sources=list(_build.SOURCES),
          ptxas=report)
 
@@ -256,6 +289,195 @@ def phase_kernels(torch, X) -> dict:
     return timed
 
 
+# K3-K5 against their plain versions: the error relative to max |L| (and
+# max |T|).  K = A A^T + b I has its eigenvalues in [b, ~5b]; there the f32
+# plain versions are 3e-7 of max |L| from the f64 factor at b = 128 (on the
+# CPU), so two f32 computations agree well inside 1e-5; f64 is held to
+# 1e-12, some 1000 ulps
+CHOL_TOL = {"float32": 1e-5, "float64": 1e-12}
+CHOL_SIZES = (32, 128, 200, 1024)
+LEAF = 128            # the leaf's size on the main path (base_block)
+LEAVES_PER_FACTOR = 64     # N = 8000 pads to 8192: 8 panels x 8 leaves
+
+
+def _block_spd(torch, b: int, dtype, seed: int):
+    g = torch.Generator().manual_seed(seed)
+    A = torch.randn(b, b, generator=g, dtype=torch.float64)
+    return (A @ A.T + b * torch.eye(b, dtype=torch.float64)).to("cuda",
+                                                                 dtype)
+
+
+def phase_chol_kernels(torch) -> dict:
+    """K3, K4 and K5 against their plain versions on K = A A^T + b I, in
+    f32 and f64; a non-positive pivot must give NaN from its column on.
+    Library times: cholesky_ex for K4/K5, cholesky_ex then
+    solve_triangular(L, I) (two calls) for K3."""
+    from gp_tpu_torch.ops import chol_block as cb
+    from gp_tpu_torch.ops.chol import chol_ok
+    timed = {}
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        tol = CHOL_TOL[dname]
+        for b in CHOL_SIZES:
+            K = _block_spd(torch, b, dtype, seed=b)
+            eye = torch.eye(b, dtype=dtype, device="cuda")
+
+            def lib_pair():
+                L, _ = torch.linalg.cholesky_ex(K)
+                return torch.linalg.solve_triangular(L, eye, upper=False)
+            cases = [("cholesky_block", None, lambda: (cb.cholesky_block(K),),
+                      lambda: (cb.cholesky_block_plain(K),),
+                      lambda: torch.linalg.cholesky_ex(K))]
+            if b <= 200:
+                cases.insert(0, ("chol_inv", None, lambda: cb.chol_inv(K),
+                                 lambda: cb.chol_inv_plain(K), lib_pair))
+            for w in (32, 128):
+                if b % w == 0:
+                    cases.append((
+                        "cholesky_panel", w,
+                        lambda w=w: (cb.cholesky_panel(K, w),),
+                        lambda w=w: (cb.cholesky_panel_plain(K, w),),
+                        lambda: torch.linalg.cholesky_ex(K)))
+            for name, w, kern, plain, lib in cases:
+                out = kern()
+                torch.cuda.synchronize()
+                ref = plain()
+                errs = [rel(o, r) for o, r in zip(out, ref)]
+                label = f"{name} {dname} b={b}" + (f" w={w}" if w else "")
+                check(all(math.isfinite(e) and e <= tol for e in errs),
+                      f"{label}: relative error {errs} > {tol}")
+                check(not any(bool(torch.triu(o, 1).any()) for o in out),
+                      f"{label}: nonzero above the diagonal")
+                iters = 5 if b >= 1024 else 20
+                bound_ms, by = chol_bound_ms(b, dname, name == "chol_inv")
+                rec = {"kernel": name, "dtype": dname, "b": b, "w": w,
+                       "rel_err_L": errs[0],
+                       "rel_err_T": errs[1] if len(errs) > 1 else None,
+                       "max_abs_err": max(float((o - r).abs().max())
+                                          for o, r in zip(out, ref)),
+                       "tol": tol,
+                       "ms": cuda_ms(torch, kern, iters=iters),
+                       "plain_ms": cuda_ms(torch, plain, iters=1, warm=1),
+                       "library_ms": cuda_ms(torch, lib, iters=iters),
+                       "library": ("cholesky_ex + solve_triangular(L, I)"
+                                   if name == "chol_inv" else
+                                   "cholesky_ex"),
+                       "bound_ms": bound_ms, "bound_by": by}
+                timed[(name, dname, b, w)] = rec
+                emit("chol_kernels", **rec)
+        # an indefinite block: NaN from the failing pivot's column on
+        K = _block_spd(torch, LEAF, dtype, seed=7)
+        K[20, 20] = -1e3
+        L, T = cb.chol_inv(K)
+        outs = {"chol_inv_L": L, "chol_inv_T": T,
+                "cholesky_block": cb.cholesky_block(K),
+                "cholesky_panel": cb.cholesky_panel(K, 32)}
+        for name, F in outs.items():
+            check(bool(torch.isnan(F[20:, 20]).all())
+                  and bool(torch.isnan(F[-1, -1]))
+                  and not bool(chol_ok(F)),
+                  f"{name} {dname}: no NaN from an indefinite block's "
+                  f"failing pivot on")
+        emit("chol_kernels_nan", dtype=dname, b=LEAF, failing_pivot=20,
+             nan_from_pivot_on=sorted(outs))
+    return timed
+
+
+def _se_k(torch, X, dtype, noise: float):
+    """K + noise I of the SE form at unit sf2 and lengthscales std
+    sqrt(d), through K1."""
+    from gp_tpu_torch.ops import se_tile
+    x = torch.as_tensor(X, dtype=dtype, device="cuda")
+    inv_l = 1.0 / (x.std(dim=0) * math.sqrt(x.shape[1]))
+    dvals = torch.full((x.shape[0],), 1.0 + noise, dtype=dtype,
+                       device="cuda")
+    return se_tile.se_matrix_diag(inv_l, 1.0, x, dvals)
+
+
+def phase_blocked(torch, X) -> dict:
+    """The blocked factor and inverse at N = 8000 (padded once to 8192,
+    block 1024, base 128) with the K3 leaf and with K4 and K5 (w = 32) as
+    base_fn, against cholesky_ex + cholesky_inverse on the same K: SE at
+    unit sf2, noise 0.1.  f64: blocked within 1e-9 of the library,
+    relative to the largest entry (the condition number of K is ~1e5 at
+    most, so both are ~1e-11 from exact).  f32: each is held to the f64
+    library result, and the blocked route's error may be at most 10x the
+    library's own."""
+    from gp_tpu_torch.ops import blocked as bl
+    from gp_tpu_torch.ops import chol_block as cb
+    from gp_tpu_torch.ops.chol import blocked_factor, library_cholesky
+    n = X.shape[0]
+    blk = 1024
+    npad = -n % blk
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    variants = {"k3_leaf": None, "k4_base": cb.cholesky_block,
+                "k5_base_w32": lambda B: cb.cholesky_panel(B, 32)}
+    launched = {}
+    ref = None
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        K = _se_k(torch, X, dtype, 0.1)
+        Llib = library_cholesky(K)
+        Kilib = bl.spd_inv_library(Llib)
+        if ref is None:
+            ref = (Llib, Kilib)
+        lib_err = {"factor": rel(Llib.double(), ref[0]),
+                   "inverse": rel(Kilib.double(), ref[1])}
+        rec = {"dtype": dname, "n": n, "padded": n + npad, "block": blk,
+               "base_block": LEAF,
+               "library": {"cholesky_ex_ms": cuda_ms(
+                   torch, lambda: library_cholesky(K), iters=5, warm=2),
+                   "cholesky_inverse_ms": cuda_ms(
+                       torch, lambda: bl.spd_inv_library(Llib), iters=5,
+                       warm=2),
+                   "err_vs_f64_library": lib_err}}
+        rec["library"]["total_ms"] = (rec["library"]["cholesky_ex_ms"]
+                                      + rec["library"]["cholesky_inverse_ms"])
+        for vname, base_fn in variants.items():
+            factor = lambda: blocked_factor(K, base_fn)
+            cb.reset_launches()
+            L, Td, b = factor()
+            check(b == blk, f"N = {n} factors in panels of {b}, not {blk}")
+            Ki = bl.spd_inv_from_chol(L, block=blk, diag_inv=Td)[:n, :n]
+            torch.cuda.synchronize()
+            counts = dict(cb.launches)
+            launched[(vname, dname)] = counts
+            Ln = torch.tril(L[:n, :n])
+            errs = {"factor_vs_library": rel(Ln, Llib),
+                    "inverse_vs_library": rel(Ki, Kilib),
+                    "factor_vs_f64_library": rel(Ln.double(), ref[0]),
+                    "inverse_vs_f64_library": rel(Ki.double(), ref[1])}
+            expect = {"k3_leaf": "chol_inv", "k4_base": "cholesky_block",
+                      "k5_base_w32": "cholesky_panel"}[vname]
+            check(counts[expect] == LEAVES_PER_FACTOR
+                  and sum(counts.values()) == LEAVES_PER_FACTOR,
+                  f"blocked {vname} {dname}: launches {counts}, expected "
+                  f"{LEAVES_PER_FACTOR} of {expect} and no other")
+            if dname == "float64":
+                check(errs["factor_vs_library"] <= 1e-9
+                      and errs["inverse_vs_library"] <= 1e-9,
+                      f"blocked {vname} f64 vs library: {errs}")
+            else:
+                check(errs["factor_vs_f64_library"]
+                      <= 10 * lib_err["factor"]
+                      and errs["inverse_vs_f64_library"]
+                      <= 10 * lib_err["inverse"],
+                      f"blocked {vname} f32: {errs} against the library's "
+                      f"own {lib_err}")
+            f_ms = cuda_ms(torch, factor, iters=5, warm=2)
+            i_ms = cuda_ms(torch, lambda: bl.spd_inv_from_chol(
+                L, block=blk, diag_inv=Td)[:n, :n], iters=5, warm=2)
+            rec[vname] = {"launches": counts, "errors": errs,
+                          "factor_ms": f_ms, "inverse_ms": i_ms,
+                          "total_ms": f_ms + i_ms}
+            del L, Td, Ki, Ln
+        emit("blocked", **rec)
+        del K, Llib, Kilib
+        torch.cuda.empty_cache()
+    return launched
+
+
 def _rmse(a, b) -> float:
     import numpy as np
     return float(np.sqrt(np.mean((np.asarray(a) - np.asarray(b)) ** 2)))
@@ -272,10 +494,10 @@ class traced_fits:
         self.exact, self.objective_vg = exact, exact.objective_vg
         self.rows, self.stamps = [], []
 
-        def recorded(kernel, noise_free, vec, *rest):
+        def recorded(kernel, noise_free, vec, *rest, **kw):
             self.stamps.append(time.perf_counter())
-            f, g = self.objective_vg(kernel, noise_free, vec, *rest)
-            self.rows.append((f.detach(), vec[-2].detach()))
+            f, g = self.objective_vg(kernel, noise_free, vec, *rest, **kw)
+            self.rows.append((f.detach(), vec.detach()))
             return f, g
         exact.objective_vg = recorded
         return self
@@ -284,12 +506,14 @@ class traced_fits:
         self.exact.objective_vg = self.objective_vg
 
     def take(self):
-        """(f, log sn) per evaluation as float64 lists; clears the record."""
+        """(f, log sn) per evaluation as float64 lists, and the first
+        evaluation's vector (the fit's start); clears the record."""
         import torch
         f = torch.stack([r[0].double().cpu() for r in self.rows])
-        ls = torch.stack([r[1].double().cpu() for r in self.rows])
+        ls = torch.stack([r[1][-2].double().cpu() for r in self.rows])
+        vec0 = self.rows[0][1]
         self.rows = []
-        return f.tolist(), ls.tolist()
+        return f.tolist(), ls.tolist(), vec0
 
 
 def _launched(se_tile) -> dict:
@@ -303,13 +527,14 @@ def phase_main_path(torch, Xtr, ytr, Xte, yte, kernel: str = "se_ard",
     the kernel's form, and no other form, must carry the path."""
     import numpy as np
     from gp_tpu_torch import GP
-    from gp_tpu_torch.ops import se_tile
+    from gp_tpu_torch.ops import chol_block, se_tile
     from gp_tpu_torch.optim.lbfgsb import explain_result
 
     form = FORM_OF[kernel]
     torch.cuda.reset_peak_memory_stats()
     base_gb = torch.cuda.memory_allocated() / 2**30
     se_tile.reset_launches()
+    chol_block.reset_launches()
     with traced_fits() as trace:
         t0 = time.perf_counter()
         gp = GP(Xtr, ytr) if kernel == "se_ard" \
@@ -321,6 +546,8 @@ def phase_main_path(torch, Xtr, ytr, Xte, yte, kernel: str = "se_ard",
         t1 = time.perf_counter()
     fit_s = t1 - t0
     after_train = _launched(se_tile)
+    chol_train = dict(chol_block.launches)
+    inf_evals = sum(1 for f, _ in trace.rows if not bool(torch.isfinite(f)))
     # host clock between evaluation starts: one evaluation and the
     # optimizer's host work; before the first, the model and NLL probes;
     # after the last, that evaluation, set_k and the final NLL.  The rate
@@ -360,6 +587,7 @@ def phase_main_path(torch, Xtr, ytr, Xte, yte, kernel: str = "se_ard",
     sg, gs = counted("batch_predict_s2_with_grad",
                      lambda: gp.batch_predict_s2_with_grad(Xte[:N_GRAD]))
     launches = _launched(se_tile)
+    chol_launches = dict(chol_block.launches)
 
     outs = {"mu": mu, "s2": s2, "y_wg": yg, "gy": gy, "s2_wg": sg,
             "gs2": gs}
@@ -390,44 +618,65 @@ def phase_main_path(torch, Xtr, ytr, Xte, yte, kernel: str = "se_ard",
               for w, by_form in launches.items()}
     check(not any(others.values()),
           f"{kernel}: launches of another form on its path: {others}")
+    # every K1 build (objective evaluation or NLL probe) is factored by the
+    # blocked route: 64 K3 leaves each, more for set_k's tries
+    check(chol_train["chol_inv"] >= LEAVES_PER_FACTOR * k1,
+          f"{kernel}: K3 launched {chol_train['chol_inv']} times for {k1} "
+          f"factorizations of {LEAVES_PER_FACTOR} leaves")
+    check(chol_launches["cholesky_block"] == 0
+          and chol_launches["cholesky_panel"] == 0,
+          f"{kernel}: K4/K5 launched on the main path: {chol_launches}")
     res = {"kernel": kernel, "form": form, "nll": nll, "evals": evals,
            "fit_s": fit_s, "evals_per_s": evals / fit_s,
            "status": explain_result(gp.last_opt_result),
+           "inf_evals": inf_evals,
            "rmse": rmse, "rmse_const": rmse_const,
            "predict_1000_s": pred_s, "launches": launches,
+           "chol_launches": chol_launches, "chol_launches_train": chol_train,
            "launches_train": after_train, "k2_launches_by_call": counts,
            "call_s": call_s,
            "hyp_moved": moved, "hyp": hyp.tolist(),
            "eval_clock": eval_clock, "memory_gb": mem_gb}
     emit(phase, **res)
     return {"gp": gp, "nll": nll, "launches": launches, "evals": evals,
-            "form": form}
+            "form": form, "chol_launches": chol_launches}
 
 
 def phase_breakdown(torch, gp, phase: str = "breakdown") -> None:
-    """Stages of one NLL+gradient evaluation at the fitted hyps.  A spec
-    with a structured gradient contraction (SE) times it; any other times
-    Q = K^-1 - alpha alpha^T and the vjp of the K1 build at Q, the two
-    steps of the objective's generic branch."""
+    """Stages of one NLL+gradient evaluation at the fitted hyps.  The
+    route the objective takes at this N is the blocked one: its factor
+    (pad, blocked_cholesky with the K3 leaves) and its inverse (the
+    blocked lauum); the library's cholesky_ex and cholesky_inverse are
+    timed beside them on the same K.  A spec with a structured gradient
+    contraction (SE) times it; any other times Q = K^-1 - alpha alpha^T
+    and the vjp of the K1 build at Q, the two steps of the objective's
+    generic branch."""
     from gp_tpu_torch.models.base import hyp_mean, hyp_sn2
     from gp_tpu_torch.models.exact import objective_vg
-    from gp_tpu_torch.ops.blocked import spd_inv_from_chol
-    from gp_tpu_torch.ops.chol import cholesky
+    from gp_tpu_torch.ops import blocked as bl
+    from gp_tpu_torch.ops import chol as chol_mod
 
     kern, x, y = gp.kernel, gp._x, gp._ys
     hyp = gp._tensor(gp._hyp_to_std(gp.get_hyp()))
     nc = kern.num_hyp(x.shape[1])
     chyp, sn2, n = hyp[:nc], hyp_sn2(hyp), x.shape[0]
+    check(chol_mod._use_blocked(n, x.device),
+          f"N = {n} on {x.device} does not take the blocked route")
     K = kern.k_noise(chyp, sn2, x, n)
-    L = cholesky(K)
-    Kinv = spd_inv_from_chol(L)
+    factor = lambda: chol_mod.blocked_factor(K)
+    L, Td, blk = factor()
+    _, Kinv = chol_mod.factor_and_inverse(K)
+    Llib = chol_mod.library_cholesky(K)
     r = y - hyp_mean(hyp)
     alpha = Kinv @ r
     vec = gp._tensor(gp._hyp_to_std(gp.get_hyp()))
     stages = {
         "k1_build": lambda: kern.k_noise(chyp, sn2, x, n),
-        "cholesky": lambda: cholesky(K),
-        "cholesky_inverse": lambda: spd_inv_from_chol(L),
+        "route_blocked_factor": factor,
+        "route_blocked_inverse": lambda: bl.spd_inv_from_chol(
+            L, block=blk, diag_inv=Td)[:n, :n],
+        "library_cholesky_ex": lambda: chol_mod.library_cholesky(K),
+        "library_cholesky_inverse": lambda: bl.spd_inv_library(Llib),
         "alpha_matvec": lambda: Kinv @ r,
     }
     if kern.k_noise_vjp_q is not None:
@@ -446,7 +695,18 @@ def phase_breakdown(torch, gp, phase: str = "breakdown") -> None:
             K_build, leaves, Q, retain_graph=True)
     stages["objective_total"] = lambda: objective_vg(kern, False, vec, x, y)
     ms = {k: cuda_ms(torch, f, iters=5, warm=1) for k, f in stages.items()}
+    ms["route_blocked_total"] = (ms["route_blocked_factor"]
+                                 + ms["route_blocked_inverse"])
+    ms["library_total"] = (ms["library_cholesky_ex"]
+                           + ms["library_cholesky_inverse"])
+    # one evaluation as a fit runs it (ending in a synchronize), on this
+    # route and on the library route: the host's enqueue time, the wall
+    # time, and the back-to-back CUDA-event time
+    per_eval = {route: eval_clock(torch, lambda b=b: objective_vg(
+        kern, False, vec, x, y, blocked=b))
+        for route, b in (("blocked", True), ("library", False))}
     # device memory one evaluation takes beyond what is already held
+    del L, Td, Llib
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -454,7 +714,46 @@ def phase_breakdown(torch, gp, phase: str = "breakdown") -> None:
     torch.cuda.synchronize()
     extra_gb = (torch.cuda.max_memory_allocated() - held) / 2**30
     emit(phase, kernel=kern.name, n=n, dtype=str(x.dtype).split(".")[-1],
-         ms=ms, objective_extra_memory_gb=extra_gb)
+         ms=ms, objective_per_route_ms=per_eval,
+         objective_extra_memory_gb=extra_gb)
+
+
+# the sizes at which route_sweep times both routes; chol._BLOCKED_MIN_N
+# is set from its runs
+SWEEP_N = (1024, 2048, 3072, 4096, 6144, 8000)
+
+
+def phase_route_sweep(torch, gp, Xtr, ytr) -> None:
+    """One SE-ARD objective evaluation (objective_vg) on the blocked route
+    and on the library route, at the first N rows of the training data
+    for each N in SWEEP_N, float32 and float64, at the f32 fit's hyps:
+    eval_clock's host enqueue, synced wall and back-to-back times.  Prints
+    the route each N takes by default and the one whose synced wall time
+    (a fit's evaluation) was lower; checks nothing but that both ran."""
+    from gp_tpu_torch.models.exact import objective_vg
+    from gp_tpu_torch.ops import chol as chol_mod
+    from gp_tpu_torch.utils.convert import gp_from_state
+    rows = []
+    for dname in ("float32", "float64"):
+        for n in SWEEP_N:
+            g = gp_from_state({"x": Xtr[:n], "y": ytr[:n],
+                               "hyps": gp.get_hyp(), "kernel": "se_ard",
+                               "dtype": dname}, device="cuda")
+            vec = g._tensor(g._hyp_to_std(g.get_hyp()))
+            clocks = {route: eval_clock(torch, lambda b=b: objective_vg(
+                g.kernel, False, vec, g._x, g._ys, blocked=b))
+                for route, b in (("blocked", True), ("library", False))}
+            wall = {r: c["synced_wall_ms"] for r, c in clocks.items()}
+            rows.append({"dtype": dname, "n": n,
+                         "default_route": "blocked" if chol_mod._use_blocked(
+                             n, g._x.device) else "library",
+                         "faster_synced": min(wall, key=wall.get),
+                         "blocked_over_library_synced": wall["blocked"]
+                         / wall["library"], **clocks})
+            del g, vec
+            torch.cuda.empty_cache()
+    emit("route_sweep", kernel="se_ard", blocked_min_n=chol_mod._BLOCKED_MIN_N,
+         rows=rows)
 
 
 def _projected_grad(torch, gp, vec, g) -> float:
@@ -477,9 +776,10 @@ def phase_f64(torch, Xtr, ytr, Xte, yte, gp32, nll32: float) -> object:
     objective against the f64 one at the same hyps (1e-3): f32 must not
     move the NLL it reports."""
     from gp_tpu_torch import GP
+    from gp_tpu_torch.models import exact
     from gp_tpu_torch.models.exact import objective_vg
     from gp_tpu_torch.ops import se_tile
-    from gp_tpu_torch.optim.lbfgsb import explain_result
+    from gp_tpu_torch.optim.lbfgsb import explain_result, lbfgsb_impl
 
     se_tile.reset_launches()
     with traced_fits() as trace:
@@ -489,12 +789,23 @@ def phase_f64(torch, Xtr, ytr, Xte, yte, gp32, nll32: float) -> object:
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         launches = _launched(se_tile)
-        f64, ls64 = trace.take()
+        f64, ls64, vec0 = trace.take()
         # the f32 fit again, for its trajectory (the main path's run is
         # left as a user runs it)
         again = GP(Xtr, ytr)
         nll32_again = again.train()
-        f32, ls32 = trace.take()
+        f32, ls32, _ = trace.take()
+        # the f64 fit from the same start on the library route (exact.fit's
+        # loop, objective forced onto that route): where the two routes'
+        # trajectories part
+        lb, ub = (torch.as_tensor(b, dtype=torch.float64, device="cuda")
+                  for b in gp._std_bounds())
+        lib = lbfgsb_impl(lambda v: exact.objective_vg(
+            gp.kernel, False, v, gp._x, gp._ys, blocked=False), vec0, lb, ub,
+            max_evals=gp._MAX_EVAL)
+        f64lib, ls64lib, _ = trace.take()
+    # the optimizer's f is in standardized units (base.GPBase.train)
+    to_nll = lambda f: float(f) + N_TRAIN * math.log(gp._y_sigma)
     evals = int(gp.last_opt_result.evals)
     nll64_at_32 = gp.nll(gp32.get_hyp())
     rel = abs(nll32 - nll64_at_32) / abs(nll64_at_32)
@@ -504,9 +815,9 @@ def phase_f64(torch, Xtr, ytr, Xte, yte, gp32, nll32: float) -> object:
     r32 = gp32.last_opt_result
     vec32 = r32.x.double()
     _, g_at = objective_vg(gp.kernel, False, vec32, gp._x, gp._ys)
-    apart = lambda tol: next(
-        (i + 1 for i, (a, b) in enumerate(zip(f32, f64))
-         if abs(a - b) > tol * abs(b)), None)
+    apart = lambda fa, fb, tol: next(
+        (i + 1 for i, (a, b) in enumerate(zip(fa, fb))
+         if not abs(a - b) <= tol * abs(b)), None)
 
     def pick(f, ls):
         evs = sorted({i for i in (1, 10, 20, 40, 80, 120, 150)
@@ -526,8 +837,18 @@ def phase_f64(torch, Xtr, ytr, Xte, yte, gp32, nll32: float) -> object:
          rel_gap_of_fits=abs(nll32 - nll) / abs(nll),
          fits_within_1e3=abs(nll32 - nll) <= 1e-3 * abs(nll),
          nll_f32_refit=nll32_again,
-         first_eval_apart={"1e-6": apart(1e-6), "1e-3": apart(1e-3)},
-         trajectory={"f32": pick(f32, ls32), "f64": pick(f64, ls64)})
+         first_eval_apart={"1e-6": apart(f32, f64, 1e-6),
+                           "1e-3": apart(f32, f64, 1e-3)},
+         library_route_f64={
+             "nll_opt": to_nll(lib.f),
+             "nll_opt_blocked": float(gp.last_opt_result.f),
+             "evals": int(lib.evals), "status": explain_result(
+                 lib._replace(f=to_nll(lib.f))),
+             "first_eval_apart_from_blocked": {
+                 t: apart(f64lib, f64, float(t))
+                 for t in ("1e-12", "1e-9", "1e-6", "1e-3")}},
+         trajectory={"f32": pick(f32, ls32), "f64": pick(f64, ls64),
+                     "f64_library": pick(f64lib, ls64lib)})
     check(math.isfinite(nll), "f64 NLL not finite")
     check(launches["se_matrix_diag"]["se"] >= evals,
           "f64 fit did not go through the f64 K1 kernel")
@@ -605,6 +926,43 @@ def phase_cpu_parity(torch, gp64, paths, Xtr, ytr, Xte) -> None:
     check(worst <= 1e-8, f"card vs CPU (f64) beyond 1e-8: {errs}")
 
 
+def phase_blocked_vs_library(torch, gp64, paths, Xtr, ytr) -> None:
+    """The objective through the blocked route (K3 leaves, blocked lauum)
+    against the library route (cholesky_ex, cholesky_inverse) on the
+    card, f64, N = 8000: SE-ARD at the f64 fit's hyps, Matern-5/2 at its
+    fit's hyps with the noise raised as in cpu_parity (parity_hyps).
+    Value and gradient within 1e-9, relative to |value| and to the
+    largest gradient entry."""
+    from gp_tpu_torch.models.exact import nll_vg_raw
+    from gp_tpu_torch.ops import chol_block
+    from gp_tpu_torch.utils.convert import gp_from_state
+    hyps = {"se_ard": gp64.get_hyp(),
+            "matern52": parity_hyps(paths["matern52"]["gp"].get_hyp(),
+                                    "matern52", ytr)}
+    res = {}
+    for kernel, h in hyps.items():
+        gp = gp_from_state({"x": Xtr, "y": ytr, "hyps": h, "kernel": kernel,
+                            "dtype": "float64"}, device="cuda")
+        hyp = gp._tensor(gp._hyp_to_std(gp.get_hyp()))
+        chol_block.reset_launches()
+        fb, gb = nll_vg_raw(gp.kernel, hyp, gp._x, gp._ys)
+        torch.cuda.synchronize()
+        k3 = chol_block.launches["chol_inv"]
+        fl, gl = nll_vg_raw(gp.kernel, hyp, gp._x, gp._ys, blocked=False)
+        res[kernel] = {
+            "nll_blocked": float(fb), "nll_library": float(fl),
+            "rel_value": abs(float(fb - fl)) / abs(float(fl)),
+            "rel_grad": float((gb - gl).abs().max() / gl.abs().max()),
+            "k3_launches": k3}
+        check(k3 == LEAVES_PER_FACTOR,
+              f"{kernel}: blocked objective ran {k3} K3 leaves")
+        del gp
+    worst = max(max(r["rel_value"], r["rel_grad"]) for r in res.values())
+    emit("blocked_vs_library", n=Xtr.shape[0], dtype="float64", rel=res,
+         max_rel=worst, tol=1e-9)
+    check(worst <= 1e-9, f"blocked vs library objective beyond 1e-9: {res}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -622,13 +980,15 @@ def main() -> int:
     try:
         dev = phase_device(torch)
         phase_build()
-        phase_unported_bounds()
         X, y = make_data(N_TRAIN + N_TEST, d=DIM, seed=SEED)
         Xtr, ytr, Xte, yte = X[:N_TRAIN], y[:N_TRAIN], X[N_TRAIN:], \
             y[N_TRAIN:]
         timed = phase_kernels(torch, Xtr)
+        chol_timed = phase_chol_kernels(torch)
+        blocked_launches = phase_blocked(torch, Xtr)
         paths = {"se_ard": phase_main_path(torch, Xtr, ytr, Xte, yte)}
         phase_breakdown(torch, paths["se_ard"]["gp"])
+        phase_route_sweep(torch, paths["se_ard"]["gp"], Xtr, ytr)
         gp64 = phase_f64(torch, Xtr, ytr, Xte, yte, paths["se_ard"]["gp"],
                          paths["se_ard"]["nll"])
         phase_fd(torch, gp64, Xte)
@@ -645,6 +1005,7 @@ def main() -> int:
             paths[kernel] = phase_main_path(torch, Xtr, ytr, Xte, yte,
                                             kernel, f"main_path_{kernel}")
         phase_cpu_parity(torch, gp64, paths, Xtr, ytr, Xte)
+        phase_blocked_vs_library(torch, gp64, paths, Xtr, ytr)
         src = "gp_tpu_torch/csrc/se_tile.cu"
         kernels = []
         for kernel, path in paths.items():
@@ -668,6 +1029,39 @@ def main() -> int:
                     "main_path": kernel,
                     "shape": [rec["m"], rec["n"], rec["d"]],
                     "dtype": "float32"})
+        # K3 on every main path; K4 and K5 on the blocked phase, where they
+        # are the base_fn of the same factorization.  Times at the leaf's
+        # size (b = 128, K5 at w = 32), f32
+        chol_src = "gp_tpu_torch/csrc/chol_block.cu"
+        chol_rows = [("chol_inv", None, 180, "chol_inv", "k3_leaf")]
+        chol_rows += [("cholesky_block", None, 41, "cholesky_block",
+                       "k4_base"),
+                      ("cholesky_panel", 32, 87, "cholesky_panel",
+                       "k5_base_w32")]
+        for name, w, line, wrapper, variant in chol_rows:
+            rec = chol_timed[(name, "float32", LEAF, w)]
+            entry = {"name": name, "route": "cuda", "source": chol_src,
+                     "replaces": f"gp_tpu/ops/pallas_chol.py:{line}",
+                     "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                     "plain_ms": rec["plain_ms"],
+                     "bound_ms": rec["bound_ms"],
+                     "bound_by": rec["bound_by"],
+                     "library_ms": rec["library_ms"],
+                     "library": rec["library"], "w": w,
+                     "shape": [LEAF, LEAF], "dtype": "float32"}
+            if name == "chol_inv":
+                for kernel, path in paths.items():
+                    launches = path["chol_launches"][wrapper]
+                    check(launches > 0, f"K3 was not launched on the "
+                          f"{kernel} main path")
+                    kernels.append({**entry, "launches": launches,
+                                    "main_path": kernel})
+            else:
+                launches = blocked_launches[(variant, "float32")][wrapper]
+                check(launches > 0, f"{name} was not launched in the "
+                      f"blocked phase")
+                kernels.append({**entry, "launches": launches,
+                                "main_path": f"blocked ({variant})"})
     except CheckFailed as exc:
         print(f"chip_smoke: check failed: {exc}", file=sys.stderr)
         return 1

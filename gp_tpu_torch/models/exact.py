@@ -1,16 +1,21 @@
 """Exact Gaussian-process regression (counterpart of gp_tpu/models/exact.py;
 reference: GP.{h,cpp}).
 
-The path, as gp_tpu takes it off the TPU (its unblocked branch,
-exact.py:186-215):
+The path, as gp_tpu takes it (exact.py:157-215):
 
-  objective   K + sn2 I in one kernel pass (K1, ops/se_tile.py), library
-              Cholesky, explicit inverse, alpha = K^-1 r, and the
-              structured gradient contraction (KernelSpec.k_noise_vjp_q,
+  objective   K + sn2 I in one kernel pass (K1, ops/se_tile.py), the
+              Cholesky factor, the explicit inverse, alpha = K^-1 r, and
+              the structured gradient contraction (KernelSpec.k_noise_vjp_q,
               SE) or the vjp of the K1 build at Q = K^-1 - alpha alpha^T
-              (Matern, RQ);
+              (Matern, RQ).  chol.factor_and_inverse picks the route: on
+              a CUDA device from chol._BLOCKED_MIN_N rows gp_tpu's
+              accelerator branch (K padded once to the panel multiple,
+              blocked_cholesky with its per-panel diagonal inverses, K3
+              leaves, and the blocked lauum spd_inv_from_chol), elsewhere
+              the library factor and `cholesky_inverse`;
   posterior   set_k: K(X, X) through K2, then the sqrt(10) noise-inflation
               ladder until the factorization succeeds (GP.cpp:423-444);
+              chol.cholesky routes it as above;
   prediction  the cross-covariance K(X*, X) through K2, then solves.
 
 Test-input gradients (GP.cpp:284-296): gp_tpu vmaps value_and_grad of a
@@ -20,9 +25,10 @@ every point's gradient, because row i depends on X*[i] alone.
 
 Not ported here: the stream regime (N >= 32768: nll_vg_streamed,
 set_k_streamed and the factor-as-temp predictions) is ROADMAP module 11,
-and any N at or past that raises NotImplementedError; the far-pad decoy
-and panel-blocked branches exist only for the TPU (see ops/blocked.py);
-the distributed layer is module 14, the masked (bucketed) family module 10.
+and any N at or past that raises NotImplementedError; gp_tpu's far-pad
+decoy branch (exact.py:218-309) avoids XLA:TPU's pad and slice costs and
+is not carried: every spec pads once instead; the distributed layer is
+module 14, the masked (bucketed) family module 10.
 """
 
 from __future__ import annotations
@@ -32,8 +38,8 @@ import math
 import torch
 
 from ..config import DEFAULT_SEED, INF
-from ..ops.blocked import add_diag, spd_inv_from_chol
-from ..ops.chol import chol_logdet, cholesky
+from ..ops.blocked import add_diag
+from ..ops.chol import chol_logdet, factor_and_inverse
 from ..ops.kernels import KernelSpec, get_k_noise
 from ..ops.solvers import CHOL, SolverSpec
 from ..optim.lbfgsb import lbfgsb_impl
@@ -80,7 +86,7 @@ def nll(kernel: KernelSpec, hyp, x, y, solver: SolverSpec = CHOL):
     return torch.where(torch.isfinite(v), v, torch.full_like(v, INF))
 
 
-def nll_vg_raw(kernel: KernelSpec, hyp, x, y):
+def nll_vg_raw(kernel: KernelSpec, hyp, x, y, blocked=None):
     """NLL + analytic hyperparameter gradient via the explicit inverse
     (GP.cpp:120-176):
 
@@ -93,8 +99,10 @@ def nll_vg_raw(kernel: KernelSpec, hyp, x, y):
     branch (exact.py:203-209): Q is formed, in place of K^-1, and the vjp
     of the k_noise build at Q gives the (chyp, sn2) cotangents.
 
-    NaN/inf propagate (the caller sanitizes).  Cholesky only.  No host
-    sync: every scalar stays on the device."""
+    blocked: the factor's route, as chol.factor_and_inverse takes it
+    (None: by size and device).  NaN/inf propagate (the caller
+    sanitizes).  Cholesky only.  No host sync: every scalar stays on the
+    device."""
     n = x.shape[0]
     _check_n(n)
     nc = kernel.num_hyp(x.shape[1])
@@ -107,8 +115,7 @@ def nll_vg_raw(kernel: KernelSpec, hyp, x, y):
     with torch.set_grad_enabled(generic):
         K_build = get_k_noise(kernel)(*leaves, x, n)
     K = K_build.detach()
-    L = cholesky(K)
-    Kinv = spd_inv_from_chol(L)
+    L, Kinv = factor_and_inverse(K, blocked)
     r = y - hyp_mean(hyp)
     # alpha from the (already needed) explicit inverse: one matvec
     alpha = Kinv @ r
@@ -131,13 +138,15 @@ def nll_vg_raw(kernel: KernelSpec, hyp, x, y):
 
 
 def objective_vg(kernel: KernelSpec, noise_free: bool, vec, x, y,
-                 solver: SolverSpec = CHOL):
-    """(value, grad) over the optimization vector, INF-sanitized."""
+                 solver: SolverSpec = CHOL, blocked=None):
+    """(value, grad) over the optimization vector, INF-sanitized; blocked
+    as in nll_vg_raw."""
     if solver.name != "chol":
         raise NotImplementedError(
             f"solver {solver.name!r}: only 'chol' is ported (ROADMAP "
             f"module 12)")
-    f, g_hyp = nll_vg_raw(kernel, from_opt_vec(vec, noise_free), x, y)
+    f, g_hyp = nll_vg_raw(kernel, from_opt_vec(vec, noise_free), x, y,
+                          blocked)
     return sanitize_value_and_grad(f, to_opt_vec(g_hyp, noise_free))
 
 

@@ -1,31 +1,103 @@
 """Cholesky solver core (counterpart of gp_tpu/ops/chol.py).
 
 Failure contract, as gp_tpu's: a failed factorization returns a factor
-whose rows from the first failing pivot on are NaN; `chol_ok` reads the
-diagonal, and the NLL and the noise-inflation loops turn that into INF
-or another try.  `torch.linalg.cholesky` raises instead, so the factor
-comes from `cholesky_ex`, and `info > 0` (the order of the first leading
-minor that is not positive definite) is mapped onto NaN rows info-1: on
-the device, with `torch.where` against an `arange`: no host sync.
+with NaN from the first failing pivot on; `chol_ok` reads the diagonal,
+and the NLL and the noise-inflation loops turn that into INF or another
+try.
 
-The factorization itself is a library call (cuSOLVER on the card), as it
-is XLA's on gp_tpu's non-TPU path; the blocked MXU routines gp_tpu uses
-on the TPU are not carried (see ops/blocked.py).
+Routing, as gp_tpu's "on the accelerator" (chol.py:25-31): a 2-D
+factorization of N >= _BLOCKED_MIN_N on a CUDA device takes the blocked
+route (ops/blocked.py), whose leaves are the hand-written K3 kernel;
+there a failing leaf's NaN reaches every later panel.  The CPU and
+smaller N take the library factor, `library_cholesky`:
+`torch.linalg.cholesky` raises on failure, so the factor comes from
+`cholesky_ex`, and `info > 0` (the order of the first leading minor that
+is not positive definite) is mapped onto NaN rows info-1: on the device,
+with `torch.where` against an `arange`: no host sync.
+
+The solves stay library calls on every route (gp_tpu's blocked solves
+are not carried, see ops/blocked.py).
 """
 
 from __future__ import annotations
 
 import torch
 
+# the size from which a CUDA factorization takes the blocked route.  gp_tpu
+# uses 2048 on its TPU; on an H100 the library route's evaluation is the
+# faster one up to 4096 rows (1.2-3.4x), the two tie at 6144 in float32
+# and the blocked route wins from 6144 in float64 and at 8000 in both
+# (chip_smoke.py's route_sweep, SE-ARD)
+_BLOCKED_MIN_N = 6144
 
-def cholesky(K):
-    """Lower Cholesky factor; rows from the first failing pivot are NaN."""
+
+def _use_blocked(n: int, device) -> bool:
+    return n >= _BLOCKED_MIN_N and torch.device(device).type == "cuda"
+
+
+def _block_for(n: int) -> int:
+    """gp_tpu's panel width for N (chol.py:34-43)."""
+    if n <= 24576:
+        return 1024
+    if n <= 65536:
+        return 2048
+    return 4096
+
+
+def library_cholesky(K):
+    """Lower Cholesky factor by the library (cuSOLVER on the card, LAPACK
+    on the CPU); rows from the first failing pivot are NaN."""
     L, info = torch.linalg.cholesky_ex(K)
     rows = torch.arange(K.shape[-1], device=K.device)
     bad = (info[..., None] > 0) & (rows >= info[..., None] - 1)
     return torch.where(bad[..., :, None],
                        torch.full((), float("nan"), dtype=L.dtype,
                                   device=L.device), L)
+
+
+def cholesky(K):
+    """Lower Cholesky factor; NaN from the first failing pivot on."""
+    n = K.shape[-1]
+    if K.ndim == 2 and _use_blocked(n, K.device):
+        from .blocked import blocked_cholesky
+        return blocked_cholesky(K, block=_block_for(n))
+    return library_cholesky(K)
+
+
+def blocked_factor(K, base_fn=None):
+    """The blocked route's factor of K (n x n): K padded once to the panel
+    multiple (blockdiag(K, I)), then blocked_cholesky with the panels'
+    diagonal-block inverses.  Returns (Lp, Td, block) at the padded size;
+    Lp's strictly-upper triangle holds K leftovers.  base_fn as in
+    blocked_cholesky (None: the K3 leaf)."""
+    from .blocked import blocked_cholesky, eye_pad
+    n = K.shape[-1]
+    blk = _block_for(n)
+    Kp = eye_pad(K, blk - n % blk) if n % blk else K
+    Lp, Td = blocked_cholesky(Kp, block=blk, zero_upper=False,
+                              base_fn=base_fn, return_diag_inv=True)
+    return Lp, Td, blk
+
+
+def factor_and_inverse(K, blocked=None):
+    """(L, K^-1) of K (n x n), the objective's factor and explicit inverse.
+
+    blocked=None takes the route `_use_blocked` picks for K; True or False
+    forces one.  Blocked (gp_tpu's accelerator branch, exact.py:157-185):
+    blocked_factor, then the lauum spd_inv_from_chol reusing its Td, both
+    kept padded (the pad block of the factor and of the inverse is I) and
+    sliced back to n.  L's strictly-upper triangle then holds K leftovers:
+    read its lower triangle (chol_logdet reads the diagonal).  Library:
+    `library_cholesky` and `torch.cholesky_inverse`."""
+    from .blocked import spd_inv_from_chol, spd_inv_library
+    n = K.shape[-1]
+    if blocked is None:
+        blocked = _use_blocked(n, K.device)
+    if not blocked:
+        L = library_cholesky(K)
+        return L, spd_inv_library(L)
+    Lp, Td, blk = blocked_factor(K)
+    return Lp[:n, :n], spd_inv_from_chol(Lp, block=blk, diag_inv=Td)[:n, :n]
 
 
 def chol_ok(L):

@@ -1,0 +1,156 @@
+#!/usr/bin/env python3
+"""Where the blocked factorization's time goes on a CUDA card.
+
+    python3 scripts/blocked_profile.py [--n 8000] [--reps 3]
+    python3 scripts/blocked_profile.py --count-ops [--n 8000]
+
+Builds the SE covariance of chip_smoke.py's data (unit sf2, lengthscales
+std sqrt(d), noise 0.1) at N rows and runs the blocked route's factor
+(`chol.blocked_factor`: pad once, K3 leaves), in float32 and float64.
+Prints one JSON line per dtype:
+  - CUDA-event milliseconds of the factor and of the leaf chain alone (the
+    route's K3 launches, one after another, on one leaf-sized block);
+  - the device time of one factorization by kernel name, from
+    torch.profiler over `reps` factorizations (the top entries), and the
+    device's busy share of the profiled window.
+The route against the library one, per stage and per evaluation, is
+chip_smoke.py's `breakdown` and `route_sweep`.  Needs one CUDA card;
+exits non-zero without one.
+
+--count-ops needs no card: it counts the aten calls one blocked
+factorization and one blocked inverse dispatch at N rows (on the meta
+device, the leaves replaced by empty outputs) and prints them by name.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def device_us(evt) -> float:
+    for name in ("device_time_total", "cuda_time_total"):
+        v = getattr(evt, name, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--n", type=int, default=8000)
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--count-ops", action="store_true")
+    args = ap.parse_args()
+    import torch
+    if args.count_ops:
+        print(json.dumps(count_ops(torch, args.n)))
+        return 0
+    if not torch.cuda.is_available():
+        print("blocked_profile: no CUDA device", file=sys.stderr)
+        return 2
+    from chip_smoke import cuda_ms
+    from gp_tpu_torch.ops import chol as chol_mod
+    from gp_tpu_torch.ops import chol_block as cb
+    from gp_tpu_torch.ops import se_tile
+    from gp_tpu_torch.utils.synth import make_data
+
+    X, _ = make_data(args.n, d=24, seed=42)
+    n = args.n
+    for dtype in (torch.float32, torch.float64):
+        x = torch.as_tensor(X, dtype=dtype, device="cuda")
+        inv_l = 1.0 / (x.std(dim=0) * math.sqrt(x.shape[1]))
+        dvals = torch.full((n,), 1.1, dtype=dtype, device="cuda")
+        K = se_tile.se_matrix_diag(inv_l, 1.0, x, dvals)
+        factor = lambda: chol_mod.blocked_factor(K)
+        _, _, blk = factor()
+        cb.reset_launches()
+        factor()
+        torch.cuda.synchronize()
+        leaves = cb.launches["chol_inv"]
+        leaf = 128
+        Kb = K[:leaf, :leaf].contiguous()
+
+        def leaf_chain():
+            for _ in range(leaves):
+                cb.chol_inv(Kb)
+        ms = {"route_factor": cuda_ms(torch, factor, iters=5, warm=1),
+              "leaf_chain": cuda_ms(torch, leaf_chain, iters=5, warm=1)}
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(args.reps):
+                factor()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        by_kernel = []
+        busy = 0.0
+        for e in prof.key_averages():
+            us = device_us(e)
+            if us <= 0 or getattr(e, "device_type", None) is not None \
+                    and "CUDA" not in str(e.device_type):
+                continue
+            by_kernel.append((us / args.reps, e.count // args.reps, e.key))
+            busy += us
+        by_kernel.sort(reverse=True)
+        print(json.dumps({
+            "dtype": str(dtype).split(".")[-1], "n": n,
+            "padded": n + (-n % blk), "block": blk, "base_block": leaf,
+            "leaves": leaves, "ms": ms,
+            "profiled_factorizations": args.reps,
+            "device_busy_share": busy / wall_us,
+            "device_ms_per_factor_by_kernel": [
+                {"kernel": k[:90], "ms": us / 1e3, "calls": c}
+                for us, c, k in by_kernel[:14]],
+            "card": torch.cuda.get_device_name(0)}), flush=True)
+        del K
+        torch.cuda.empty_cache()
+    return 0
+
+
+def count_ops(torch, n: int) -> dict:
+    """aten calls of one blocked factorization and one blocked inverse
+    (the route's shapes, no data: meta tensors, leaves stubbed)."""
+    import collections
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from gp_tpu_torch.ops import blocked as bl
+    from gp_tpu_torch.ops import chol as chol_mod
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.calls[str(func.overloadpacket)] += 1
+            return func(*args, **(kwargs or {}))
+
+    leaf = bl.chol_block.chol_inv
+    bl.chol_block.chol_inv = lambda K: (torch.empty_like(K),
+                                        torch.empty_like(K))
+    try:
+        K = torch.empty(n, n, device="meta")
+        with Count() as fac:
+            L, Td, blk = chol_mod.blocked_factor(K)
+        with Count() as inv:
+            bl.spd_inv_from_chol(L, block=blk, diag_inv=Td)
+    finally:
+        bl.chol_block.chol_inv = leaf
+    return {"n": n, "block": blk,
+            "factor_calls": sum(fac.calls.values()),
+            "factor_by_name": dict(fac.calls.most_common()),
+            "inverse_calls": sum(inv.calls.values()),
+            "inverse_by_name": dict(inv.calls.most_common())}
+
+
+if __name__ == "__main__":
+    sys.exit(main())

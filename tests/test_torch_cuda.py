@@ -1,6 +1,7 @@
-"""gp_tpu_torch on a CUDA card: the tile kernel against its plain version.
-The exact GP on the card against the same GP on the CPU is chip_smoke.py's
-`cpu_parity` phase.
+"""gp_tpu_torch on a CUDA card: the tile kernel and the block Cholesky
+kernels against their plain versions, and the blocked route against the
+library factor and inverse.  The exact GP on the card against the same GP
+on the CPU is chip_smoke.py's `cpu_parity` phase.
 
 Every test here is marked `cuda` and skips without a CUDA device.  This
 file imports neither jax nor gp_tpu, so it also runs where JAX is not
@@ -12,7 +13,7 @@ installed; there, skip the JAX-importing conftest:
 import pytest
 import torch
 
-from gp_tpu_torch.ops import se_tile
+from gp_tpu_torch.ops import chol, chol_block, se_tile
 
 pytestmark = pytest.mark.cuda
 
@@ -84,3 +85,112 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         se_tile.se_matrix(1.0, 1.0, x, x, form="m72")
     with pytest.raises(ValueError):
         se_tile.se_matrix(1.0, 1.0, x, x, "rq", torch.ones(2, device=cuda))
+
+
+# K = A A^T + b I is well conditioned (eigenvalues in [b, ~5b]); the f32
+# plain versions are 3e-7 of max |L| from the f64 factor at b = 128 (on
+# the CPU), so two f32 computations agree well inside 1e-5
+CHOL_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def _block_spd(cuda, dtype, b, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    A = torch.randn(b, b, generator=g, dtype=torch.float64)
+    return (A @ A.T + b * torch.eye(b, dtype=torch.float64)).to(cuda, dtype)
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b", [32, 128, 200])
+def test_chol_inv_and_block_match_plain(cuda, dtype, b):
+    K = _block_spd(cuda, dtype, b)
+    chol_block.reset_launches()
+    L, T = chol_block.chol_inv(K)
+    L4 = chol_block.cholesky_block(K)
+    torch.cuda.synchronize()
+    assert chol_block.launches["chol_inv"] == 1
+    assert chol_block.launches["cholesky_block"] == 1
+    Lp, Tp = chol_block.chol_inv_plain(K)
+    assert _rel(L, Lp) <= CHOL_TOL[dtype]
+    assert _rel(T, Tp) <= CHOL_TOL[dtype]
+    assert _rel(L4, chol_block.cholesky_block_plain(K)) <= CHOL_TOL[dtype]
+    assert not bool(torch.triu(L, 1).any() or torch.triu(T, 1).any()
+                    or torch.triu(L4, 1).any())
+    # a block of a larger matrix is read in place, through its row stride
+    big = torch.zeros(b + 7, b + 7, dtype=dtype, device=cuda)
+    big[3:3 + b, 5:5 + b] = K
+    Lv, Tv = chol_block.chol_inv(big[3:3 + b, 5:5 + b])
+    assert torch.equal(Lv, L) and torch.equal(Tv, T)
+    assert torch.equal(chol_block.cholesky_block(big[3:3 + b, 5:5 + b]), L4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b,w", [(32, 32), (128, 32), (128, 128),
+                                 (256, 64)])
+def test_chol_panel_matches_plain(cuda, dtype, b, w):
+    K = _block_spd(cuda, dtype, b, seed=1)
+    chol_block.reset_launches()
+    L = chol_block.cholesky_panel(K, w)
+    torch.cuda.synchronize()
+    assert chol_block.launches["cholesky_panel"] == 1
+    assert _rel(L, chol_block.cholesky_panel_plain(K, w)) <= CHOL_TOL[dtype]
+    assert not bool(torch.triu(L, 1).any())
+    big = torch.zeros(b + 5, b + 5, dtype=dtype, device=cuda)
+    big[5:, 5:] = K
+    assert torch.equal(chol_block.cholesky_panel(big[5:, 5:], w), L)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chol_kernels_nan_on_indefinite(cuda, dtype):
+    K = _block_spd(cuda, dtype, 64)
+    K[20, 20] = -1e3
+    L, T = chol_block.chol_inv(K)
+    for F in (L, T, chol_block.cholesky_block(K),
+              chol_block.cholesky_panel(K, 16)):
+        assert bool(torch.isnan(F[20:, 20]).all())
+        assert bool(torch.isnan(F[-1, -1]))
+        assert not bool(chol.chol_ok(F))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_blocked_route_matches_library(cuda, dtype):
+    """N = 2100 on the blocked route (padded to 3072: three panels of
+    eight K3 leaves) against the library route; and the default route:
+    library below chol._BLOCKED_MIN_N, blocked from it (N + 52 pads to
+    seven panels, 56 leaves)."""
+    def spd(n):
+        g = torch.Generator(device=cuda).manual_seed(3)
+        A = torch.randn(n, n, generator=g, dtype=torch.float64, device=cuda)
+        return (A @ A.T / n + torch.eye(n, dtype=torch.float64,
+                                        device=cuda)).to(dtype)
+    K = spd(2100)
+    chol_block.reset_launches()
+    Lb, Ki = chol.factor_and_inverse(K, blocked=True)
+    torch.cuda.synchronize()
+    assert chol_block.launches["chol_inv"] == 24
+    Lr, Kir = chol.factor_and_inverse(K)
+    assert chol_block.launches["chol_inv"] == 24
+    assert torch.equal(Lr, chol.library_cholesky(K))
+    assert torch.equal(Kir, torch.cholesky_inverse(Lr))
+    assert _rel(torch.tril(Lb), Lr) <= 100 * CHOL_TOL[dtype]
+    assert _rel(Ki, Kir) <= 100 * CHOL_TOL[dtype]
+    n = chol._BLOCKED_MIN_N + 52
+    K = spd(n)
+    chol_block.reset_launches()
+    L = chol.cholesky(K)
+    torch.cuda.synchronize()
+    assert chol_block.launches["chol_inv"] == 8 * (-(-n // 1024))
+    assert _rel(L, chol.library_cholesky(K)) <= 100 * CHOL_TOL[dtype]
+
+
+def test_chol_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    K = torch.eye(8, device=cuda)
+    with pytest.raises(TypeError):
+        chol_block.chol_inv(K.half())
+    with pytest.raises(ValueError):
+        chol_block.cholesky_panel(K, 3)
+    with pytest.raises(ValueError):
+        chol_block.cholesky_block(torch.ones(4, 5, device=cuda))
