@@ -11,12 +11,14 @@ line:
 
   device     the card's name and `nvidia-smi` power limit (also printed
              raw, as nvidia-smi gives it)
-  build      seconds to build the kernels, ptxas register/spill report
+  build      seconds to build the kernels, ptxas register/spill report;
+             K3's register kernel must not spill
   chol_kernels  K3 (chol_inv), K4 (cholesky_block) and K5 (cholesky_panel)
              against their plain versions, float32 and float64, at
              b = 32, 128, 200 and (K4, K5) 1024, K5 at w = 32 and 128:
-             error relative to max |L| and max |T|, NaN on an indefinite
-             block, CUDA-event times, bound, the library's time
+             error relative to max |L| and max |T|, K3's design at each b,
+             NaN on an indefinite block (failing pivot 0, 20, 127),
+             CUDA-event times, bound, the library's time
   blocked    the blocked factor and inverse at N = 8000 (padded to 8192,
              block 1024, base 128) with the K3 leaf, with K4 and with K5
              (w = 32) as base_fn, against cholesky_ex + cholesky_inverse:
@@ -55,10 +57,11 @@ line:
 Each main path runs with the launch counts set to 0 just before it and
 read just after; it must have gone through its own form of K1 and K2 and
 no other, and through K3 at least 64 times per factorization (N = 8000
-factors as 8 panels of 8 leaves), and never through K4 or K5.  Then comes
-the `kernels` line (every ported kernel and form, what it replaces, its
-launches on its main path, times and bound) and, last, the result line
-{"ok": true, "device": {...}}.
+factors as 8 panels of 8 leaves), every K3 launch by its register
+kernel (chol_block.launches["chol_inv_reg"]), and never through K4 or
+K5.  Then comes the `kernels` line (every ported kernel and form, what
+it replaces, its launches on its main path, times and bound) and, last,
+the result line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -66,6 +69,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -165,26 +169,37 @@ def se_bound_ms(m: int, n: int, d: int, dtype: str, symmetric: bool,
                                  else "operations")
 
 
-def chol_bound_ms(b: int, dtype: str, inverse: bool):
+def chol_bound_ms(b: int, dtype: str, inverse: bool, w=None):
     """Least time of one b x b block Cholesky (K4, K5): b^3 / 3 flops, as
-    much again for the inverse (K3); the block read once, L (and L^-1)
-    written once.  Plain FMAs: TF32 tensor cores are off in the port."""
+    much again for the inverse (K3); L (and L^-1) written once, and what
+    the function reads of the block read once: its lower triangle, and
+    for K5 at panel width w also the strict upper triangles of the w x w
+    diagonal blocks (the panels' pivot rows).  Plain FMAs: TF32 tensor
+    cores are off in the port."""
     size = 4 if dtype == "float32" else 8
     flops = (2 if inverse else 1) * b ** 3 / 3
-    nbytes = size * b * b * (3 if inverse else 2)
+    read = b * (b + 1) // 2 + (b * (w - 1) // 2 if w else 0)
+    nbytes = size * (read + (2 if inverse else 1) * b * b)
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
 
-def phase_device(torch) -> dict:
+def smi_line() -> str:
+    """The first card's name and power limit, as nvidia-smi gives them
+    ("" when it gives none)."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
-    line = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
-    check(smi.returncode == 0 and line != "", "nvidia-smi gave no card")
+    out = smi.stdout.strip() if smi.returncode == 0 else ""
+    return out.splitlines()[0] if out else ""
+
+
+def phase_device(torch) -> dict:
+    line = smi_line()
+    check(line != "", "nvidia-smi gave no card")
     print(line, flush=True)
     info = {"name": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "nvidia_smi": line,
@@ -207,6 +222,13 @@ def phase_build() -> None:
             report.append(f"{name}: {ln.strip()}")
     emit("build", seconds=seconds, sources=list(_build.SOURCES),
          ptxas=report)
+    # K3's register kernel holds its square in registers: a spill would put
+    # it in local memory
+    reg = [ln for ln in report if "chol_inv_reg" in ln and "spill" in ln]
+    spilled = [ln for ln in reg if any(int(n) for n in re.findall(
+        r"(\d+) bytes spill", ln))]
+    check(len(reg) == 2 and not spilled,
+          f"K3 register kernel: spill report {reg}")
 
 
 def phase_kernels(torch, X) -> dict:
@@ -340,8 +362,16 @@ def phase_chol_kernels(torch) -> dict:
                         lambda w=w: (cb.cholesky_panel_plain(K, w),),
                         lambda: torch.linalg.cholesky_ex(K)))
             for name, w, kern, plain, lib in cases:
+                cb.reset_launches()
                 out = kern()
                 torch.cuda.synchronize()
+                # the C entry the wrapper launched: K3's by block size
+                design = {"chol_inv": cb.k3_entry(b), "cholesky_block": "chol",
+                          "cholesky_panel": "chol_panel"}[name]
+                check(cb.launches[design] == 1
+                      and sum(cb.launches.values()) == 1,
+                      f"{name} {dname} b={b}: launches {cb.launches}, "
+                      f"expected one of {design}")
                 ref = plain()
                 errs = [rel(o, r) for o, r in zip(out, ref)]
                 label = f"{name} {dname} b={b}" + (f" w={w}" if w else "")
@@ -350,9 +380,10 @@ def phase_chol_kernels(torch) -> dict:
                 check(not any(bool(torch.triu(o, 1).any()) for o in out),
                       f"{label}: nonzero above the diagonal")
                 iters = 5 if b >= 1024 else 20
-                bound_ms, by = chol_bound_ms(b, dname, name == "chol_inv")
-                rec = {"kernel": name, "dtype": dname, "b": b, "w": w,
-                       "rel_err_L": errs[0],
+                bound_ms, by = chol_bound_ms(b, dname, name == "chol_inv",
+                                             w)
+                rec = {"kernel": name, "design": design, "dtype": dname,
+                       "b": b, "w": w, "rel_err_L": errs[0],
                        "rel_err_T": errs[1] if len(errs) > 1 else None,
                        "max_abs_err": max(float((o - r).abs().max())
                                           for o, r in zip(out, ref)),
@@ -366,21 +397,28 @@ def phase_chol_kernels(torch) -> dict:
                        "bound_ms": bound_ms, "bound_by": by}
                 timed[(name, dname, b, w)] = rec
                 emit("chol_kernels", **rec)
-        # an indefinite block: NaN from the failing pivot's column on
-        K = _block_spd(torch, LEAF, dtype, seed=7)
-        K[20, 20] = -1e3
-        L, T = cb.chol_inv(K)
-        outs = {"chol_inv_L": L, "chol_inv_T": T,
-                "cholesky_block": cb.cholesky_block(K),
-                "cholesky_panel": cb.cholesky_panel(K, 32)}
-        for name, F in outs.items():
-            check(bool(torch.isnan(F[20:, 20]).all())
-                  and bool(torch.isnan(F[-1, -1]))
-                  and not bool(chol_ok(F)),
-                  f"{name} {dname}: no NaN from an indefinite block's "
-                  f"failing pivot on")
-        emit("chol_kernels_nan", dtype=dname, b=LEAF, failing_pivot=20,
-             nan_from_pivot_on=sorted(outs))
+        # an indefinite block: NaN from the failing pivot's column on, and
+        # K3's NaN where its plain version has them
+        for bad in (0, 20, LEAF - 1):
+            K = _block_spd(torch, LEAF, dtype, seed=7)
+            K[bad, bad] = -1e3
+            L, T = cb.chol_inv(K)
+            Lp, Tp = cb.chol_inv_plain(K)
+            check(torch.equal(torch.isnan(L), torch.isnan(Lp))
+                  and torch.equal(torch.isnan(T), torch.isnan(Tp)),
+                  f"K3 {dname}: NaN pattern at failing pivot {bad} is not "
+                  f"its plain version's")
+            outs = {"chol_inv_L": L, "chol_inv_T": T,
+                    "cholesky_block": cb.cholesky_block(K),
+                    "cholesky_panel": cb.cholesky_panel(K, 32)}
+            for name, F in outs.items():
+                check(bool(torch.isnan(F[bad:, bad]).all())
+                      and bool(torch.isnan(F[-1, -1]))
+                      and not bool(chol_ok(F)),
+                      f"{name} {dname}: no NaN from an indefinite block's "
+                      f"failing pivot {bad} on")
+            emit("chol_kernels_nan", dtype=dname, b=LEAF, failing_pivot=bad,
+                 nan_from_pivot_on=sorted(outs))
     return timed
 
 
@@ -448,8 +486,9 @@ def phase_blocked(torch, X) -> dict:
                     "inverse_vs_library": rel(Ki, Kilib),
                     "factor_vs_f64_library": rel(Ln.double(), ref[0]),
                     "inverse_vs_f64_library": rel(Ki.double(), ref[1])}
-            expect = {"k3_leaf": "chol_inv", "k4_base": "cholesky_block",
-                      "k5_base_w32": "cholesky_panel"}[vname]
+            # every K3 leaf by the register kernel
+            expect = {"k3_leaf": "chol_inv_reg", "k4_base": "chol",
+                      "k5_base_w32": "chol_panel"}[vname]
             check(counts[expect] == LEAVES_PER_FACTOR
                   and sum(counts.values()) == LEAVES_PER_FACTOR,
                   f"blocked {vname} {dname}: launches {counts}, expected "
@@ -620,12 +659,13 @@ def phase_main_path(torch, Xtr, ytr, Xte, yte, kernel: str = "se_ard",
           f"{kernel}: launches of another form on its path: {others}")
     # every K1 build (objective evaluation or NLL probe) is factored by the
     # blocked route: 64 K3 leaves each, more for set_k's tries
-    check(chol_train["chol_inv"] >= LEAVES_PER_FACTOR * k1,
-          f"{kernel}: K3 launched {chol_train['chol_inv']} times for {k1} "
+    check(chol_train["chol_inv_reg"] >= LEAVES_PER_FACTOR * k1,
+          f"{kernel}: K3 launched {chol_train} times for {k1} "
           f"factorizations of {LEAVES_PER_FACTOR} leaves")
-    check(chol_launches["cholesky_block"] == 0
-          and chol_launches["cholesky_panel"] == 0,
-          f"{kernel}: K4/K5 launched on the main path: {chol_launches}")
+    # every leaf is 128 x 128, all by K3's register kernel; no K4 or K5
+    check(sum(chol_launches.values()) == chol_launches["chol_inv_reg"],
+          f"{kernel}: K3's rank-1 kernel, K4 or K5 launched on the main "
+          f"path: {chol_launches}")
     res = {"kernel": kernel, "form": form, "nll": nll, "evals": evals,
            "fit_s": fit_s, "evals_per_s": evals / fit_s,
            "status": explain_result(gp.last_opt_result),
@@ -778,10 +818,11 @@ def phase_f64(torch, Xtr, ytr, Xte, yte, gp32, nll32: float) -> object:
     from gp_tpu_torch import GP
     from gp_tpu_torch.models import exact
     from gp_tpu_torch.models.exact import objective_vg
-    from gp_tpu_torch.ops import se_tile
+    from gp_tpu_torch.ops import chol_block, se_tile
     from gp_tpu_torch.optim.lbfgsb import explain_result, lbfgsb_impl
 
     se_tile.reset_launches()
+    chol_block.reset_launches()
     with traced_fits() as trace:
         t0 = time.perf_counter()
         gp = GP(Xtr, ytr, dtype=torch.float64)
@@ -789,6 +830,7 @@ def phase_f64(torch, Xtr, ytr, Xte, yte, gp32, nll32: float) -> object:
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         launches = _launched(se_tile)
+        chol_launches = dict(chol_block.launches)
         f64, ls64, vec0 = trace.take()
         # the f32 fit again, for its trajectory (the main path's run is
         # left as a user runs it)
@@ -825,6 +867,7 @@ def phase_f64(torch, Xtr, ytr, Xte, yte, gp32, nll32: float) -> object:
         return {"eval": evs, "f_std": [f[i - 1] for i in evs],
                 "log_sn_std": [ls[i - 1] for i in evs]}
     emit("f64_fit", nll=nll, evals=evals, fit_s=fit_s, launches=launches,
+         chol_launches=chol_launches,
          status=explain_result(gp.last_opt_result),
          rmse=_rmse(mu.cpu().numpy(), yte), hyp=gp.get_hyp().tolist(),
          hyp_f32=gp32.get_hyp().tolist(), nll_f32=nll32,
@@ -852,6 +895,10 @@ def phase_f64(torch, Xtr, ytr, Xte, yte, gp32, nll32: float) -> object:
     check(math.isfinite(nll), "f64 NLL not finite")
     check(launches["se_matrix_diag"]["se"] >= evals,
           "f64 fit did not go through the f64 K1 kernel")
+    check(chol_launches["chol_inv_reg"] >= LEAVES_PER_FACTOR * evals
+          and sum(chol_launches.values()) == chol_launches["chol_inv_reg"],
+          f"f64 fit: chol_block launches {chol_launches} for {evals} "
+          f"evaluations: not all by K3's register kernel")
     check(rel <= 1e-3, f"f32 NLL {nll32} not within 1e-3 of the f64 NLL "
           f"{nll64_at_32} at the same hyps")
     return gp
@@ -947,7 +994,7 @@ def phase_blocked_vs_library(torch, gp64, paths, Xtr, ytr) -> None:
         chol_block.reset_launches()
         fb, gb = nll_vg_raw(gp.kernel, hyp, gp._x, gp._ys)
         torch.cuda.synchronize()
-        k3 = chol_block.launches["chol_inv"]
+        k3 = chol_block.launches["chol_inv_reg"]
         fl, gl = nll_vg_raw(gp.kernel, hyp, gp._x, gp._ys, blocked=False)
         res[kernel] = {
             "nll_blocked": float(fb), "nll_library": float(fl),
@@ -1033,13 +1080,12 @@ def main() -> int:
         # are the base_fn of the same factorization.  Times at the leaf's
         # size (b = 128, K5 at w = 32), f32
         chol_src = "gp_tpu_torch/csrc/chol_block.cu"
-        chol_rows = [("chol_inv", None, 180, "chol_inv", "k3_leaf")]
-        chol_rows += [("cholesky_block", None, 41, "cholesky_block",
-                       "k4_base"),
-                      ("cholesky_panel", 32, 87, "cholesky_panel",
-                       "k5_base_w32")]
-        for name, w, line, wrapper, variant in chol_rows:
+        chol_rows = [("chol_inv", None, 180, "k3_leaf"),
+                     ("cholesky_block", None, 41, "k4_base"),
+                     ("cholesky_panel", 32, 87, "k5_base_w32")]
+        for name, w, line, variant in chol_rows:
             rec = chol_timed[(name, "float32", LEAF, w)]
+            design = rec["design"]
             entry = {"name": name, "route": "cuda", "source": chol_src,
                      "replaces": f"gp_tpu/ops/pallas_chol.py:{line}",
                      "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
@@ -1048,16 +1094,17 @@ def main() -> int:
                      "bound_by": rec["bound_by"],
                      "library_ms": rec["library_ms"],
                      "library": rec["library"], "w": w,
-                     "shape": [LEAF, LEAF], "dtype": "float32"}
+                     "shape": [LEAF, LEAF], "dtype": "float32",
+                     "design": design}
             if name == "chol_inv":
                 for kernel, path in paths.items():
-                    launches = path["chol_launches"][wrapper]
+                    launches = path["chol_launches"][design]
                     check(launches > 0, f"K3 was not launched on the "
                           f"{kernel} main path")
                     kernels.append({**entry, "launches": launches,
                                     "main_path": kernel})
             else:
-                launches = blocked_launches[(variant, "float32")][wrapper]
+                launches = blocked_launches[(variant, "float32")][design]
                 check(launches > 0, f"{name} was not launched in the "
                       f"blocked phase")
                 kernels.append({**entry, "launches": launches,

@@ -4,7 +4,9 @@
 // Replaces the three Pallas TPU kernels of gp_tpu/ops/pallas_chol.py:
 //   K3  _chol_inv_kernel   (:180)  (L, T = L^-1) of one b x b block in one
 //       launch: the right-looking rank-1 loop with the forward substitution
-//       on the identity interleaved -- chol_rank1<T, PACKED, INV = true>;
+//       on the identity interleaved -- chol_inv_reg<T> for b <= 128 (the
+//       blocked factorization's leaf), chol_rank1<T, PACKED, INV = true>
+//       above;
 //   K4  _chol_kernel       (:41)   L alone by the same loop --
 //       chol_rank1<T, PACKED, INV = false>;
 //   K5  _chol_panel_kernel (:87)   L by left-looking rank-w micro-panels:
@@ -27,12 +29,15 @@
 // block (one SM of 132) walking b serial steps, one barrier each (K3/K4);
 // at the path's b = 128 a launch does b^3/3 (K4) or 2 b^3/3 (K3) flops,
 // microseconds of work at the card's rate.  What sets the time is the
-// one SM's shared-memory traffic (three accesses per update) and the b
-// serial steps.  The blocked factorization runs 64 of these leaves one
-// after another at N = 8192.  A simple, right kernel first: register
-// tiles, a multi-block or a wgmma design are later work.
+// b serial steps and what each step costs on the one SM: for chol_rank1
+// its shared-memory traffic (three accesses per update); for
+// chol_inv_reg, whose update is ~35 instructions a warp, the chain from
+// one barrier to the next -- the shared loads, the live warps' FMAs
+// sharing the SM's four schedulers, the pivot's 1 / sqrt(d) and the
+// barrier itself.  The blocked factorization runs 64 K3 leaves one after
+// another at N = 8192.  Measured times: PERF.md, section 6.
 //
-// Shared memory (K3/K4).  The working matrix A and the inverse T are
+// Shared memory (chol_rank1).  The working matrix A and the inverse T are
 // triangular, so each is held as its packed lower triangle, b(b+1)/2
 // entries, beside one b-vector (the pivots' 1 / sqrt(d)).  At b = 128
 // that is 133 KB in f64 for K3 -- the full squares, 2 x 128 KB, would not
@@ -57,6 +62,9 @@ constexpr int WARPS = NT / 32;
 constexpr int TM = 64;       // K5 GEMM: rows of an output tile
 constexpr int TN = 32;       // K5 GEMM: columns of an output tile
 constexpr int KC = 32;       // K5 GEMM: depth of a staged chunk
+constexpr int RB = 128;      // K3 register kernel: the square it holds
+constexpr int RT = 4;        // K3 register kernel: a thread's tile is RT x RT
+constexpr int LDT = RB + RT; // row stride of its column store: 16-byte rows
 
 __device__ __forceinline__ float sqrt_t(float v) { return sqrtf(v); }
 __device__ __forceinline__ double sqrt_t(double v) { return sqrt(v); }
@@ -150,6 +158,164 @@ chol_rank1(const T* __restrict__ kin, int64_t ldk, T* lout, T* tout,
       lout[e] = T(0);
       if (INV) tout[e] = T(0);
     }
+  }
+}
+
+// K3 at b <= 128, in registers.  The block's 1024 threads hold the b x b
+// working square padded to 128 x 128 with the identity, one 4 x 4 tile
+// each: warp w holds rows 4w..4w+3, lane l columns 4l..4l+3, so a warp is
+// a band of consecutive rows.  Padded rows and columns have l = 0 and take
+// no part.
+//
+// One square W serves A and T.  At step j the entries right of the pivot
+// column are A's (the trailing matrix and the rows above it, which are
+// never read), and those at or left of it are T's: column j of A is final
+// at step j, so its holders save it, unscaled, to row j of `lt` in shared
+// memory (for the store) and set their registers to column j of the
+// identity, where T starts.  One FMA per entry and step then updates
+// either:
+//   W[i, k] -= l_i y_k,  i > j,   y_k = A[k, j] / sqrt(d)   (k > j)
+//                                 y_k = T[j, k] / sqrt(d)   (k <= j),
+// with l_i = A[i, j] / sqrt(d) -- the products and the order of
+// chol_rank1, so the rounding is the same.  That halves the registers of
+// two squares: 16 data registers a thread in f32, 32 in f64.
+//
+// One barrier per step, through one shared vector v of 128 entries:
+// v[x] = A[x, j] below the pivot (x > j) and T[j, x] at or left of it,
+// so l_i = v[i] / sqrt(d) and y_k = v[k] / sqrt(d).  Before the barrier
+// the holders of column j write its part below the pivot, warp j / 4
+// (which holds row j) the row's part, and the holder of the pivot
+// dinv[j] = 1 / sqrt(d).  Two copies of v alternate by the parity of j,
+// so a step's write cannot reach a copy that a slower warp still reads
+// from the step before.  After it, every warp with a row below j reads
+// y (one 16-byte load a lane: consecutive words, no conflicts) and, row
+// by row, l_i (one broadcast word), and updates its rows below j; a warp
+// whose rows are all <= j skips the step whole, so the live work shrinks
+// with j and no warp diverges on it.  Steps run in fours, so the column
+// and row a step selects are compile-time register indices.  In f64 the
+// 32 data registers, y and l_i fit the 64 registers a thread of 1024 may
+// have: ptxas reports no spills (chip_smoke.py `build` checks that).
+//
+// The store scales as chol_rank1 does: L[i, k] = lt[k][i] dinv[k], L[j, j]
+// = d dinv[j], T[i, k] = W[i, k] dinv[i]; zeros above the diagonal.
+__device__ __forceinline__ void ld4(const float* p, float& a, float& b,
+                                    float& c, float& d) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  a = v.x; b = v.y; c = v.z; d = v.w;
+}
+__device__ __forceinline__ void ld4(const double* p, double& a, double& b,
+                                    double& c, double& d) {
+  const double2 u = reinterpret_cast<const double2*>(p)[0];
+  const double2 v = reinterpret_cast<const double2*>(p)[1];
+  a = u.x; b = u.y; c = v.x; d = v.y;
+}
+__device__ __forceinline__ void st4(float* p, float a, float b, float c,
+                                    float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void st4(double* p, double a, double b, double c,
+                                    double d) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(a, b);
+  reinterpret_cast<double2*>(p)[1] = make_double2(c, d);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT, 1)
+chol_inv_reg(const T* __restrict__ kin, int64_t ldk, T* __restrict__ lout,
+             T* __restrict__ tout, int b) {
+  static_assert(WARPS * RT == RB && 32 * RT == RB, "one tile a thread");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* lt = reinterpret_cast<T*>(smem_raw);   // (RB, LDT): lt[j] = A[:, j]
+  T* vs = lt + RB * LDT;                    // (2, RB): v by parity of j
+  T* dinv = vs + 2 * RB;                    // (RB,)
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int i0 = RT * warp;                 // the tile's first row
+  const int k0 = RT * lane;                 // and first column
+  const bool rows_in = i0 < b;              // the warp holds a row of K
+
+  // W = lower triangle of K, identity outside the b x b corner
+  T w[RT][RT];
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    const int i = i0 + r;
+#pragma unroll
+    for (int c = 0; c < RT; ++c) {
+      const int k = k0 + c;
+      w[r][c] = (i < b && k < b)
+                    ? (k <= i ? kin[static_cast<int64_t>(i) * ldk + k]
+                              : T(0))
+                    : (i == k ? T(1) : T(0));
+    }
+  }
+
+  // b rounded up to 4 steps; a padded pivot is 1 and changes nothing
+  for (int j0 = 0; j0 < b; j0 += RT) {
+    const int jt = j0 / RT;      // the lane with column j, the warp with row j
+#pragma unroll
+    for (int jj = 0; jj < RT; ++jj) {
+      const int j = j0 + jj;
+      T* v = vs + (jj & 1) * RB;
+      // column j: saved for the store from the pivot down, v below the
+      // pivot; then the identity's column j
+      if (lane == jt && warp >= jt) {
+        st4(lt + j * LDT + i0, w[0][jj], w[1][jj], w[2][jj], w[3][jj]);
+        if (warp > jt) {
+          st4(v + i0, w[0][jj], w[1][jj], w[2][jj], w[3][jj]);
+        } else {
+          dinv[j] = T(1) / sqrt_t(w[jj][jj]);
+#pragma unroll
+          for (int r = jj + 1; r < RT; ++r) v[i0 + r] = w[r][jj];
+        }
+#pragma unroll
+        for (int r = 0; r < RT; ++r) w[r][jj] = i0 + r == j ? T(1) : T(0);
+      }
+      // row j of T, at and left of the pivot
+      if (warp == jt && lane <= jt) {
+        if (lane < jt) {
+          st4(v + k0, w[jj][0], w[jj][1], w[jj][2], w[jj][3]);
+        } else {
+#pragma unroll
+          for (int c = 0; c <= jj; ++c) v[k0 + c] = w[jj][c];
+        }
+      }
+      __syncthreads();
+      if (rows_in && i0 + RT - 1 > j) {
+        const T inv = dinv[j];
+        T y[RT];
+        ld4(v + k0, y[0], y[1], y[2], y[3]);
+#pragma unroll
+        for (int c = 0; c < RT; ++c) y[c] *= inv;
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+          if (i0 + r > j) {
+            const T li = v[i0 + r] * inv;
+#pragma unroll
+            for (int c = 0; c < RT; ++c) w[r][c] = fma_t(-li, y[c], w[r][c]);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    const int i = i0 + r;
+    if (i < b) {
+      const T s = dinv[i];
+#pragma unroll
+      for (int c = 0; c < RT; ++c) {
+        const int k = k0 + c;
+        if (k < b)
+          tout[static_cast<int64_t>(i) * b + k] = k <= i ? w[r][c] * s : T(0);
+      }
+    }
+  }
+  for (int e = threadIdx.x; e < b * b; e += NT) {
+    const int i = e / b;
+    const int k = e % b;
+    lout[e] = k <= i ? lt[k * LDT + i] * dinv[k] : T(0);
   }
 }
 
@@ -298,6 +464,21 @@ int launch_rank1(const void* k, int64_t ldk, void* l, void* t, int64_t b,
 }
 
 template <typename T>
+int launch_inv_reg(const void* k, int64_t ldk, void* l, void* t, int64_t b,
+                   void* stream) {
+  if (b <= 0) return 0;
+  if (b > RB || ldk < b) return static_cast<int>(cudaErrorInvalidValue);
+  static size_t allowed = 0;
+  const size_t bytes = static_cast<size_t>(RB * LDT + 3 * RB) * sizeof(T);
+  cudaError_t err = allow_smem(chol_inv_reg<T>, bytes, bytes, &allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  chol_inv_reg<T><<<1, NT, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(k), ldk, static_cast<T*>(l), static_cast<T*>(t),
+      static_cast<int>(b));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
 int launch_panel(const void* k, int64_t ldk, void* l, int64_t b, int64_t w,
                  void* stream) {
   if (b <= 0) return 0;
@@ -321,8 +502,10 @@ int launch_panel(const void* k, int64_t ldk, void* l, int64_t b, int64_t w,
 // matrix is read in place), symmetric (K3/K4 read its lower triangle; K5
 // also the upper entries inside each w x w diagonal square, as gp_tpu's
 // panel GEMM does).  l, t (b, b) row-major outputs, lower triangular,
-// zeros above.  w: K5's panel width, b % w == 0.  Each returns the
-// cudaError_t of the launch.
+// zeros above.  w: K5's panel width, b % w == 0.  chol_inv_reg_* is K3
+// for b <= 128 (chol_inv_reg), chol_inv_* K3 for any b (chol_rank1); the
+// wrapper (ops/chol_block.py) picks by b.  Each returns the cudaError_t of
+// the launch.
 extern "C" int chol_inv_f32(const void* k, int64_t ldk, void* l, void* t,
                             int64_t b, void* stream) {
   return launch_rank1<float, true>(k, ldk, l, t, b, stream);
@@ -331,6 +514,16 @@ extern "C" int chol_inv_f32(const void* k, int64_t ldk, void* l, void* t,
 extern "C" int chol_inv_f64(const void* k, int64_t ldk, void* l, void* t,
                             int64_t b, void* stream) {
   return launch_rank1<double, true>(k, ldk, l, t, b, stream);
+}
+
+extern "C" int chol_inv_reg_f32(const void* k, int64_t ldk, void* l,
+                                void* t, int64_t b, void* stream) {
+  return launch_inv_reg<float>(k, ldk, l, t, b, stream);
+}
+
+extern "C" int chol_inv_reg_f64(const void* k, int64_t ldk, void* l,
+                                void* t, int64_t b, void* stream) {
+  return launch_inv_reg<double>(k, ldk, l, t, b, stream);
 }
 
 extern "C" int chol_f32(const void* k, int64_t ldk, void* l, int64_t b,

@@ -1,7 +1,8 @@
 """Cholesky solver core (counterpart of gp_tpu/ops/chol.py).
 
 Failure contract, as gp_tpu's: a failed factorization returns a factor
-with NaN from the first failing pivot on; `chol_ok` reads the diagonal,
+with NaN from the first failing pivot on (the library route: in its whole
+lower triangle); `chol_ok` reads the diagonal,
 and the NLL and the noise-inflation loops turn that into INF or another
 try.
 
@@ -11,9 +12,9 @@ route (ops/blocked.py), whose leaves are the hand-written K3 kernel;
 there a failing leaf's NaN reaches every later panel.  The CPU and
 smaller N take the library factor, `library_cholesky`:
 `torch.linalg.cholesky` raises on failure, so the factor comes from
-`cholesky_ex`, and `info > 0` (the order of the first leading minor that
-is not positive definite) is mapped onto NaN rows info-1: on the device,
-with `torch.where` against an `arange`: no host sync.
+`cholesky_ex`, and `info > 0` turns the whole lower triangle to NaN, as
+gp_tpu's `jnp.linalg.cholesky` returns it (chol.py:70): on the device,
+with `torch.where`: no host sync.
 
 The solves stay library calls on every route (gp_tpu's blocked solves
 are not carried, see ops/blocked.py).
@@ -46,13 +47,14 @@ def _block_for(n: int) -> int:
 
 def library_cholesky(K):
     """Lower Cholesky factor by the library (cuSOLVER on the card, LAPACK
-    on the CPU); rows from the first failing pivot are NaN."""
+    on the CPU); a failed factorization is NaN in its whole lower
+    triangle, zeros above."""
     L, info = torch.linalg.cholesky_ex(K)
-    rows = torch.arange(K.shape[-1], device=K.device)
-    bad = (info[..., None] > 0) & (rows >= info[..., None] - 1)
-    return torch.where(bad[..., :, None],
-                       torch.full((), float("nan"), dtype=L.dtype,
-                                  device=L.device), L)
+    n = K.shape[-1]
+    lower = torch.ones(n, n, dtype=torch.bool, device=K.device).tril()
+    bad = (info > 0)[..., None, None] & lower
+    return torch.where(bad, torch.full((), float("nan"), dtype=L.dtype,
+                                       device=L.device), L)
 
 
 def cholesky(K):

@@ -6,14 +6,20 @@ Counterpart of gp_tpu/ops/pallas_chol.py:
   cholesky_block  K4, L by right-looking rank-1 updates    (_chol_kernel)
   cholesky_panel  K5, L by left-looking rank-w panels      (_chol_panel_kernel)
 
+K3 has two designs, picked by the block size alone (`k3_entry`): up to
+K3_REG_MAX_B (the blocked factorization's leaf) the register-tiled kernel
+behind the C entry chol_inv_reg, above it the shared-memory rank-1 loop
+chol_rank1 behind chol_inv.
+
 Dispatch is by the device of the tensor alone, as in se_tile.py.  A CUDA
 tensor launches the kernel (float32 or float64) or raises; a CPU tensor
 runs the plain version (`chol_inv_plain`, `cholesky_block_plain`,
 `cholesky_panel_plain`): gp_tpu's loops in torch ops, on the live part of
 the matrix only, which the tests hold against gp_tpu's kernels in
 interpret mode and chip_smoke.py holds the kernels against on the card.
-`launches[wrapper]` counts kernel launches, one per launch, and nothing
-else.
+`launches[entry]` counts kernel launches by C entry point (K3:
+chol_inv_reg or chol_inv; K4: chol; K5: chol_panel), one per launch, and
+nothing else.
 
 Failure contract, gp_tpu's: a non-positive pivot gives NaN in that column
 and every later one.  Each input is read as a symmetric matrix (K3 and K4
@@ -35,9 +41,12 @@ import torch
 
 from . import _build
 
-# kernel launches since the last reset, by wrapper
-launches = dict.fromkeys(("chol_inv", "cholesky_block", "cholesky_panel"),
+# kernel launches since the last reset, by C entry point
+launches = dict.fromkeys(("chol_inv_reg", "chol_inv", "chol", "chol_panel"),
                          0)
+
+# the largest block K3's register kernel takes (its 128 x 128 square)
+K3_REG_MAX_B = 128
 
 
 def reset_launches() -> None:
@@ -45,8 +54,12 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-_ENTRY = {"chol_inv": "chol_inv", "cholesky_block": "chol",
-          "cholesky_panel": "chol_panel"}
+def k3_entry(b: int) -> str:
+    """The C entry of the K3 kernel a CUDA block of size b launches."""
+    return "chol_inv_reg" if b <= K3_REG_MAX_B else "chol_inv"
+
+
+_ENTRY = {"cholesky_block": "chol", "cholesky_panel": "chol_panel"}
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 # (k, ldk, outputs..., b[, w], stream)
 _ARGTYPES = {"chol_inv": [_P, _I, _P, _P, _I, _P],
@@ -55,11 +68,10 @@ _ARGTYPES = {"chol_inv": [_P, _I, _P, _P, _I, _P],
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
-def _kernel_fn(wrapper: str, dtype):
-    """The C entry point of `wrapper` for dtype, from the library built at
-    first use."""
-    fn = getattr(_build.load("chol_block"),
-                 f"{_ENTRY[wrapper]}_{_SUFFIX[dtype]}")
+def _kernel_fn(entry: str, wrapper: str, dtype):
+    """The C entry point `entry` (one of `wrapper`'s kernels) for dtype,
+    from the library built at first use."""
+    fn = getattr(_build.load("chol_block"), f"{entry}_{_SUFFIX[dtype]}")
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES[wrapper]
         fn.restype = ctypes.c_int
@@ -93,14 +105,15 @@ def _launch(wrapper: str, K, *extra):
             for _ in range(2 if wrapper == "chol_inv" else 1)]
     if b == 0:
         return outs
-    fn = _kernel_fn(wrapper, K.dtype)
+    entry = k3_entry(b) if wrapper == "chol_inv" else _ENTRY[wrapper]
+    fn = _kernel_fn(entry, wrapper, K.dtype)
     with torch.cuda.device(K.device):
         rc = fn(K.data_ptr(), K.stride(0), *[o.data_ptr() for o in outs], b,
                 *extra, torch.cuda.current_stream(K.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{wrapper}: chol_block launch (b={b}) failed "
                            f"with CUDA error {rc}")
-    launches[wrapper] += 1
+    launches[entry] += 1
     return outs
 
 

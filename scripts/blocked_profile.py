@@ -3,13 +3,15 @@
 
     python3 scripts/blocked_profile.py [--n 8000] [--reps 3]
     python3 scripts/blocked_profile.py --count-ops [--n 8000]
+    python3 scripts/blocked_profile.py --leaf-sweep
 
 Builds the SE covariance of chip_smoke.py's data (unit sf2, lengthscales
 std sqrt(d), noise 0.1) at N rows and runs the blocked route's factor
 (`chol.blocked_factor`: pad once, K3 leaves), in float32 and float64.
 Prints one JSON line per dtype:
   - CUDA-event milliseconds of the factor and of the leaf chain alone (the
-    route's K3 launches, one after another, on one leaf-sized block);
+    route's K3 launches, one after another, on one leaf-sized block), and
+    the factor's K3 launches by C entry;
   - the device time of one factorization by kernel name, from
     torch.profiler over `reps` factorizations (the top entries), and the
     device's busy share of the profiled window.
@@ -20,6 +22,11 @@ exits non-zero without one.
 --count-ops needs no card: it counts the aten calls one blocked
 factorization and one blocked inverse dispatch at N rows (on the meta
 device, the leaves replaced by empty outputs) and prints them by name.
+
+--leaf-sweep times K3 alone against its block size b (4 to 128, the
+register kernel's range), per dtype: one CUDA graph of 50 launches on
+one SPD block, replayed, so no host time comes between the launches.
+Microseconds per launch, and per step of the b-step loop.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=8000)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--count-ops", action="store_true")
+    ap.add_argument("--leaf-sweep", action="store_true")
     args = ap.parse_args()
     import torch
     if args.count_ops:
@@ -56,7 +64,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("blocked_profile: no CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import cuda_ms
+    from chip_smoke import cuda_ms, smi_line
+    if args.leaf_sweep:
+        for dtype in (torch.float32, torch.float64):
+            print(json.dumps(leaf_sweep(torch, dtype, cuda_ms, smi_line)),
+                  flush=True)
+        return 0
     from gp_tpu_torch.ops import chol as chol_mod
     from gp_tpu_torch.ops import chol_block as cb
     from gp_tpu_torch.ops import se_tile
@@ -74,7 +87,8 @@ def main() -> int:
         cb.reset_launches()
         factor()
         torch.cuda.synchronize()
-        leaves = cb.launches["chol_inv"]
+        k3 = {e: cb.launches[e] for e in ("chol_inv_reg", "chol_inv")}
+        leaves = sum(k3.values())
         leaf = 128
         Kb = K[:leaf, :leaf].contiguous()
 
@@ -105,16 +119,40 @@ def main() -> int:
         print(json.dumps({
             "dtype": str(dtype).split(".")[-1], "n": n,
             "padded": n + (-n % blk), "block": blk, "base_block": leaf,
-            "leaves": leaves, "ms": ms,
+            "leaves": leaves, "k3_launches": k3, "ms": ms,
             "profiled_factorizations": args.reps,
             "device_busy_share": busy / wall_us,
             "device_ms_per_factor_by_kernel": [
                 {"kernel": k[:90], "ms": us / 1e3, "calls": c}
                 for us, c, k in by_kernel[:14]],
-            "card": torch.cuda.get_device_name(0)}), flush=True)
+            "card": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi_line()}), flush=True)
         del K
         torch.cuda.empty_cache()
     return 0
+
+
+def leaf_sweep(torch, dtype, cuda_ms, smi_line, launches: int = 50) -> dict:
+    """Microseconds of one K3 launch at each block size b, from a CUDA
+    graph of `launches` launches on one SPD block."""
+    from gp_tpu_torch.ops import chol_block as cb
+    us = {}
+    for b in (4, 32, 64, 96, 128):
+        g = torch.Generator(device="cuda").manual_seed(b)
+        A = torch.randn(b, b, generator=g, dtype=dtype, device="cuda")
+        K = A @ A.T / b + torch.eye(b, dtype=dtype, device="cuda")
+        cb.chol_inv(K)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(launches):
+                cb.chol_inv(K)
+        us[b] = cuda_ms(torch, graph.replay, iters=10, warm=2) * 1e3 \
+            / launches
+    return {"dtype": str(dtype).split(".")[-1], "kernel": cb.k3_entry(128),
+            "launches_per_graph": launches, "us_per_launch": us,
+            "us_per_step": {b: t / b for b, t in us.items()},
+            "card": torch.cuda.get_device_name(0), "nvidia_smi": smi_line()}
 
 
 def count_ops(torch, n: int) -> dict:

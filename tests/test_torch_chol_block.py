@@ -47,7 +47,7 @@ def test_chol_inv_matches_pallas(n):
     # lower triangular outputs, and no kernel launch for a CPU tensor
     assert not np.any(np.triu(L.numpy(), 1)) \
         and not np.any(np.triu(T.numpy(), 1))
-    assert cb.launches["chol_inv"] == 0
+    assert not any(cb.launches.values())
 
 
 @pytest.mark.parametrize("n", [8, 32, 128])

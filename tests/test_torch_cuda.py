@@ -104,15 +104,17 @@ def _rel(a, b):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("b", [32, 128, 200])
+@pytest.mark.parametrize("b", [1, 7, 32, 100, 128, 200])
 def test_chol_inv_and_block_match_plain(cuda, dtype, b):
     K = _block_spd(cuda, dtype, b)
     chol_block.reset_launches()
     L, T = chol_block.chol_inv(K)
     L4 = chol_block.cholesky_block(K)
     torch.cuda.synchronize()
-    assert chol_block.launches["chol_inv"] == 1
-    assert chol_block.launches["cholesky_block"] == 1
+    # K3 by the register kernel up to the leaf's 128, the rank-1 loop above
+    k3 = "chol_inv_reg" if b <= chol_block.K3_REG_MAX_B else "chol_inv"
+    assert chol_block.launches == {"chol_inv_reg": 0, "chol_inv": 0,
+                                   "chol": 1, "chol_panel": 0, k3: 1}
     Lp, Tp = chol_block.chol_inv_plain(K)
     assert _rel(L, Lp) <= CHOL_TOL[dtype]
     assert _rel(T, Tp) <= CHOL_TOL[dtype]
@@ -135,7 +137,7 @@ def test_chol_panel_matches_plain(cuda, dtype, b, w):
     chol_block.reset_launches()
     L = chol_block.cholesky_panel(K, w)
     torch.cuda.synchronize()
-    assert chol_block.launches["cholesky_panel"] == 1
+    assert chol_block.launches["chol_panel"] == 1
     assert _rel(L, chol_block.cholesky_panel_plain(K, w)) <= CHOL_TOL[dtype]
     assert not bool(torch.triu(L, 1).any())
     big = torch.zeros(b + 5, b + 5, dtype=dtype, device=cuda)
@@ -144,13 +146,24 @@ def test_chol_panel_matches_plain(cuda, dtype, b, w):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_chol_kernels_nan_on_indefinite(cuda, dtype):
-    K = _block_spd(cuda, dtype, 64)
-    K[20, 20] = -1e3
+@pytest.mark.parametrize("bad", [0, 20, 127])
+def test_chol_kernels_nan_on_indefinite(cuda, dtype, bad):
+    """A failing pivot gives NaN from its column on, in K3 (the register
+    kernel at b = 128), K4 and K5; the leading rows stay as the plain
+    version has them."""
+    K = _block_spd(cuda, dtype, 128)
+    K[bad, bad] = -1e3
+    chol_block.reset_launches()
     L, T = chol_block.chol_inv(K)
+    assert chol_block.launches["chol_inv_reg"] == 1
+    Lp, Tp = chol_block.chol_inv_plain(K)
+    for F, P in ((L, Lp), (T, Tp)):
+        assert torch.equal(torch.isnan(F), torch.isnan(P))
+        if bad:
+            assert _rel(F[:bad], P[:bad]) <= CHOL_TOL[dtype]
     for F in (L, T, chol_block.cholesky_block(K),
               chol_block.cholesky_panel(K, 16)):
-        assert bool(torch.isnan(F[20:, 20]).all())
+        assert bool(torch.isnan(F[bad:, bad]).all())
         assert bool(torch.isnan(F[-1, -1]))
         assert not bool(chol.chol_ok(F))
 
@@ -170,9 +183,9 @@ def test_blocked_route_matches_library(cuda, dtype):
     chol_block.reset_launches()
     Lb, Ki = chol.factor_and_inverse(K, blocked=True)
     torch.cuda.synchronize()
-    assert chol_block.launches["chol_inv"] == 24
+    assert chol_block.launches["chol_inv_reg"] == 24
     Lr, Kir = chol.factor_and_inverse(K)
-    assert chol_block.launches["chol_inv"] == 24
+    assert sum(chol_block.launches.values()) == 24
     assert torch.equal(Lr, chol.library_cholesky(K))
     assert torch.equal(Kir, torch.cholesky_inverse(Lr))
     assert _rel(torch.tril(Lb), Lr) <= 100 * CHOL_TOL[dtype]
@@ -182,7 +195,7 @@ def test_blocked_route_matches_library(cuda, dtype):
     chol_block.reset_launches()
     L = chol.cholesky(K)
     torch.cuda.synchronize()
-    assert chol_block.launches["chol_inv"] == 8 * (-(-n // 1024))
+    assert chol_block.launches["chol_inv_reg"] == 8 * (-(-n // 1024))
     assert _rel(L, chol.library_cholesky(K)) <= 100 * CHOL_TOL[dtype]
 
 

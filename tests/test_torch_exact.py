@@ -20,6 +20,7 @@ import torch
 
 import gp_tpu
 from gp_tpu.models import exact as je
+from gp_tpu.optim.lbfgsb import explain_result as j_explain
 from gp_tpu.optim.lbfgsb import lbfgsb_impl as j_lbfgsb
 from gp_tpu_torch import GP as TGP
 from gp_tpu_torch.models import exact as te
@@ -149,12 +150,8 @@ def test_lbfgsb_first_evaluations_match(budget):
     ft = lambda v: te.objective_vg(gt.kernel, False, v, gt._x, gt._ys)
     rt = lbfgsb_impl(ft, _t(x0), _t(lb), _t(ub), max_evals=budget)
     assert rt.evals == int(rj.evals)
-    # the port's converged is the projected-gradient test; gp_tpu's is
-    # isfinite(f) (ROADMAP Faults)
-    pg = np.max(np.abs(np.clip(np.asarray(rj.x) - np.asarray(rj.g), lb, ub)
-                       - np.asarray(rj.x)))
-    assert bool(rj.converged) == np.isfinite(float(rj.f))
-    assert rt.converged == (bool(rj.converged) and pg < 1e-8)
+    assert rt.converged == bool(rj.converged)
+    assert explain_result(rt).split(":")[0] == j_explain(rj).split(":")[0]
     np.testing.assert_allclose(_n(rt.x), np.asarray(rj.x), rtol=1e-9,
                                atol=1e-12)
     np.testing.assert_allclose(float(rt.f), float(rj.f), rtol=1e-9)
@@ -162,7 +159,7 @@ def test_lbfgsb_first_evaluations_match(budget):
                                atol=1e-7 * np.max(np.abs(rj.g)))
 
 
-# problems on which both fits stop inside the 160-evaluation budget
+# the fits' problems (also read by scripts/lbfgsb_stops.py)
 FITS = {"se_ard": dict(n=300, d=5, seed=1), "se_iso": dict(n=300, d=5,
                                                            seed=0)}
 
@@ -177,10 +174,21 @@ def trained(request):
 
 def test_train_matches_gp_tpu(trained):
     gj, gt, vj, vt, _ = trained
-    # finite and inside the budget (gp_tpu's own "SUCCESS"); the port
-    # tells a passed projected-gradient test from a stalled line search
-    assert explain_result(gt.last_opt_result).startswith(
-        ("SUCCESS", "STOPPED: no acceptable step"))
+    rj, rt = gj.last_opt_result, gt.last_opt_result
+    # converged is isfinite(f) in both; the port stops inside the budget
+    assert rt.converged == bool(rj.converged)
+    status = explain_result(rt)
+    assert status.startswith("SUCCESS")
+    # how many evaluations a fit spends on f's rounding floor, and so
+    # whether it stops inside the budget, is decided by the last bits of
+    # f: on se_iso gp_tpu's GP.train reaches the budget (175 evaluations),
+    # jax.jit of its lbfgsb_impl on the same objective from the same start
+    # stops at 55 and the port at 109, all at one f to 1e-15
+    # (scripts/lbfgsb_stops.py).  The statuses are compared where gp_tpu
+    # stops inside the budget; on every problem the port ends at its f
+    if int(rj.evals) < gj._MAX_EVAL:
+        assert status.split(":")[0] == j_explain(rj).split(":")[0]
+    np.testing.assert_allclose(float(rt.f), float(rj.f), rtol=1e-9)
     np.testing.assert_allclose(vt, vj, rtol=1e-6)
     np.testing.assert_allclose(gt.get_hyp(), np.asarray(gj.get_hyp()),
                                atol=1e-4)
