@@ -12,13 +12,16 @@ line:
   device     the card's name and `nvidia-smi` power limit (also printed
              raw, as nvidia-smi gives it)
   build      seconds to build the kernels, ptxas register/spill report;
-             K3's register kernel must not spill
+             no form of the register kernel (K3's, K4's leaf) may spill
   chol_kernels  K3 (chol_inv), K4 (cholesky_block) and K5 (cholesky_panel)
              against their plain versions, float32 and float64, at
-             b = 32, 128, 200 and (K4, K5) 1024, K5 at w = 32 and 128:
-             error relative to max |L| and max |T|, K3's design at each b,
-             NaN on an indefinite block (failing pivot 0, 20, 127),
-             CUDA-event times, bound, the library's time
+             b = 32, 128, 200 and (K4, K5) 1024, K4 also at 129, 256 and
+             1000 (its blocked form above 128), K5 at w = 32 and 128:
+             error relative to max |L| and max |T|, the C entry each
+             launched, NaN on an indefinite block (failing pivot 0, 20,
+             127; K4's mask equal to its plain version's, also at b = 1024
+             with failing pivots 0, 200, 1023), CUDA-event times, bound,
+             the library's time
   blocked    the blocked factor and inverse at N = 8000 (padded to 8192,
              block 1024, base 128) with the K3 leaf, with K4 and with K5
              (w = 32) as base_fn, against cholesky_ex + cholesky_inverse:
@@ -77,10 +80,12 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM3
-# 3.35 TB/s; float32 67 TFLOP/s and float64 34 TFLOP/s outside the tensor
-# cores (the SE tile kernel uses plain FMAs).
+# 3.35 TB/s; float32 67 TFLOP/s outside the tensor cores (their TF32 is
+# not the same work: it rounds the operands); float64 67 TFLOP/s on the
+# tensor cores (DMMA), whose products are exact IEEE float64 FMAs, so the
+# same work, twice the 34 TFLOP/s of the plain FMAs the port's kernels use.
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 
 N_TRAIN, N_TEST, DIM, SEED = 8000, 1000, 24, 42
 N_GRAD = 256
@@ -222,13 +227,14 @@ def phase_build() -> None:
             report.append(f"{name}: {ln.strip()}")
     emit("build", seconds=seconds, sources=list(_build.SOURCES),
          ptxas=report)
-    # K3's register kernel holds its square in registers: a spill would put
-    # it in local memory
+    # the register kernel holds its square in registers: a spill would put
+    # it in local memory.  Its forms: K3's chol_inv_reg<T>, K4's leaf
+    # chol_inv_reg_alias<T, STORE_T> (T stored or not), in f32 and f64
     reg = [ln for ln in report if "chol_inv_reg" in ln and "spill" in ln]
     spilled = [ln for ln in reg if any(int(n) for n in re.findall(
         r"(\d+) bytes spill", ln))]
-    check(len(reg) == 2 and not spilled,
-          f"K3 register kernel: spill report {reg}")
+    check(len(reg) == 6 and not spilled,
+          f"register kernel forms: spill report {reg}")
 
 
 def phase_kernels(torch, X) -> dict:
@@ -317,7 +323,11 @@ def phase_kernels(torch, X) -> dict:
 # CPU), so two f32 computations agree well inside 1e-5; f64 is held to
 # 1e-12, some 1000 ulps
 CHOL_TOL = {"float32": 1e-5, "float64": 1e-12}
-CHOL_SIZES = (32, 128, 200, 1024)
+CHOL_SIZES = (32, 128, 129, 200, 256, 1000, 1024)
+# K4 alone at these: its blocked form's first panel plus one row, two full
+# panels, and a ragged last panel near the top of gp_tpu's range
+K4_ONLY_SIZES = (129, 256, 1000)
+K4_BIG = 1024     # the K4 row of the `kernels` line also reports this b
 LEAF = 128            # the leaf's size on the main path (base_block)
 LEAVES_PER_FACTOR = 64     # N = 8000 pads to 8192: 8 panels x 8 leaves
 
@@ -351,11 +361,11 @@ def phase_chol_kernels(torch) -> dict:
             cases = [("cholesky_block", None, lambda: (cb.cholesky_block(K),),
                       lambda: (cb.cholesky_block_plain(K),),
                       lambda: torch.linalg.cholesky_ex(K))]
-            if b <= 200:
+            if b <= 200 and b not in K4_ONLY_SIZES:
                 cases.insert(0, ("chol_inv", None, lambda: cb.chol_inv(K),
                                  lambda: cb.chol_inv_plain(K), lib_pair))
             for w in (32, 128):
-                if b % w == 0:
+                if b % w == 0 and b not in K4_ONLY_SIZES:
                     cases.append((
                         "cholesky_panel", w,
                         lambda w=w: (cb.cholesky_panel(K, w),),
@@ -417,9 +427,30 @@ def phase_chol_kernels(torch) -> dict:
                       and not bool(chol_ok(F)),
                       f"{name} {dname}: no NaN from an indefinite block's "
                       f"failing pivot {bad} on")
+            _check_k4_nan(torch, cb, K, dname, bad, outs["cholesky_block"])
             emit("chol_kernels_nan", dtype=dname, b=LEAF, failing_pivot=bad,
-                 nan_from_pivot_on=sorted(outs))
+                 nan_from_pivot_on=sorted(outs),
+                 k4_mask_equals_plain=True)
+        # K4's blocked form: a pivot failing in the first panel, inside a
+        # later one, and in the last leaf
+        for bad in (0, 200, K4_BIG - 1):
+            K = _block_spd(torch, K4_BIG, dtype, seed=7)
+            K[bad, bad] = -1e3
+            _check_k4_nan(torch, cb, K, dname, bad, cb.cholesky_block(K))
+            emit("chol_kernels_nan", dtype=dname, b=K4_BIG,
+                 failing_pivot=bad, nan_from_pivot_on=["cholesky_block"],
+                 k4_mask_equals_plain=True)
     return timed
+
+
+def _check_k4_nan(torch, cb, K, dname: str, bad: int, L) -> None:
+    """K4's NaN mask on an indefinite block is its plain version's, with
+    nothing NaN (or nonzero) above the diagonal."""
+    P = cb.cholesky_block_plain(K)
+    check(torch.equal(torch.isnan(L), torch.isnan(P))
+          and not bool(torch.triu(L, 1).any()),
+          f"cholesky_block {dname} b={K.shape[0]}: NaN mask at failing "
+          f"pivot {bad} is not its plain version's")
 
 
 def _se_k(torch, X, dtype, noise: float):
@@ -1107,6 +1138,11 @@ def main() -> int:
                 launches = blocked_launches[(variant, "float32")][design]
                 check(launches > 0, f"{name} was not launched in the "
                       f"blocked phase")
+                if name == "cholesky_block":
+                    big = chol_timed[(name, "float32", K4_BIG, None)]
+                    entry[f"b{K4_BIG}"] = {
+                        k: big[k] for k in ("ms", "library_ms", "bound_ms",
+                                            "bound_by", "max_abs_err")}
                 kernels.append({**entry, "launches": launches,
                                 "main_path": f"blocked ({variant})"})
     except CheckFailed as exc:

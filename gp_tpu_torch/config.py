@@ -13,6 +13,8 @@ device; it never falls back to the CPU.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 # Mirror of the reference's global INF objective sentinel (def.h:12).
@@ -26,6 +28,12 @@ DEFAULT_SEED = 0
 DBL_EPS = 2.220446049250313e-16
 DBL_MIN = 2.2250738585072014e-308
 DBL_MAX = 1.7976931348623157e+308
+
+# Debug mode (gp_tpu/config.py:41-48): GP_TPU_DEBUG=1 runs the analytic
+# against finite-difference gradient check at every train start
+# (models/base.py).  gp_tpu also turns on jax_debug_nans; the port has no
+# counterpart switch.
+DEBUG = os.environ.get("GP_TPU_DEBUG", "0") == "1"
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -5,10 +5,11 @@
 //   K3  _chol_inv_kernel   (:180)  (L, T = L^-1) of one b x b block in one
 //       launch: the right-looking rank-1 loop with the forward substitution
 //       on the identity interleaved -- chol_inv_reg<T> for b <= 128 (the
-//       blocked factorization's leaf), chol_rank1<T, PACKED, INV = true>
-//       above;
-//   K4  _chol_kernel       (:41)   L alone by the same loop --
-//       chol_rank1<T, PACKED, INV = false>;
+//       blocked factorization's leaf), chol_rank1<T, PACKED> above;
+//   K4  _chol_kernel       (:41)   L alone: for b <= 128 the register
+//       kernel without T's store (chol_inv_reg_alias<T, false>); above it
+//       a blocked right-looking factorization across the card's SMs
+//       (chol_blocked<T>, below);
 //   K5  _chol_panel_kernel (:87)   L by left-looking rank-w micro-panels:
 //       per panel one GEMM C = K[:, p:p+w] - L L[p:p+w, :]^T, computed
 //       here with shared-memory tiles, then a w-step rank-1 loop on the
@@ -25,9 +26,9 @@
 // diagonal).  Full-precision FMAs only: no tensor cores, so no TF32.
 // Offsets into device memory are int64.
 //
-// What bounds them: neither bytes nor operations.  Each kernel is ONE
-// block (one SM of 132) walking b serial steps, one barrier each (K3/K4);
-// at the path's b = 128 a launch does b^3/3 (K4) or 2 b^3/3 (K3) flops,
+// What bounds them: neither bytes nor operations.  Each rank-1 kernel is
+// ONE block (one SM of 132) walking b serial steps, one barrier each; at
+// the path's b = 128 a launch does b^3/3 (K4) or 2 b^3/3 (K3) flops,
 // microseconds of work at the card's rate.  What sets the time is the
 // b serial steps and what each step costs on the one SM: for chol_rank1
 // its shared-memory traffic (three accesses per update); for
@@ -35,17 +36,17 @@
 // one barrier to the next -- the shared loads, the live warps' FMAs
 // sharing the SM's four schedulers, the pivot's 1 / sqrt(d) and the
 // barrier itself.  The blocked factorization runs 64 K3 leaves one after
-// another at N = 8192.  Measured times: PERF.md, section 6.
+// another at N = 8192.  K4 above 128 runs its b / NB leaves in sequence
+// too; its updates spread over the SMs and take a small share of its
+// time.  Measured times: PERF.md, section 6.
 //
-// Shared memory (chol_rank1).  The working matrix A and the inverse T are
-// triangular, so each is held as its packed lower triangle, b(b+1)/2
-// entries, beside one b-vector (the pivots' 1 / sqrt(d)).  At b = 128
-// that is 133 KB in f64 for K3 -- the full squares, 2 x 128 KB, would not
-// fit in the 227 KB a block may take.  Where even the packed triangles do
-// not fit (K3 at b = 200 in f64, K4 at b = 1024), the same loop runs on
-// the output buffers in device memory (PACKED = false: A in L, T in T,
-// full row-major), the vector still in shared memory.  The launcher
-// picks the packed form whenever it fits.
+// Shared memory (chol_rank1, K3 above 128).  The working matrix A and the
+// inverse T are triangular, so each is held as its packed lower triangle,
+// b(b+1)/2 entries, beside one b-vector (the pivots' 1 / sqrt(d)).  Where
+// the packed triangles do not fit in the 227 KB a block may take (b = 200
+// in f64), the same loop runs on the output buffers in device memory
+// (PACKED = false: A in L, T in T, full row-major), the vector still in
+// shared memory.  The launcher picks the packed form whenever it fits.
 //
 // K5 keeps its panel in the output buffer L (a (b, w) panel of b = 1024
 // rows does not fit in shared memory in f64) and stages the GEMM's operands
@@ -87,18 +88,18 @@ __device__ __forceinline__ Off<PACKED> at(Off<PACKED> i, Off<PACKED> k,
   return PACKED ? i * (i + 1) / 2 + k : i * b + k;
 }
 
-// One barrier per step: step j reads column j of A and row j of T as they
-// stand and scales them on the fly (l_k = A[k, j] / sqrt(d)), writing only
-// the trailing triangle and the rows of T below j, which nobody reads in
-// that step.  Column j of A and row j of T are final from step j on, so
-// they stay unscaled and the scale 1 / sqrt(d_j) is kept in dinv[j]; the
-// store writes L[i, k] = A[i, k] dinv[k] (L[j, j] = d dinv[j], gp_tpu's
-// d * rsqrt(d)) and T[i, k] = T[i, k] dinv[i].  The products are gp_tpu's:
-// (A[i, j] dinv[j]) (A[k, j] dinv[j]) and (A[i, j] dinv[j]) (T[j, k]
-// dinv[j]).  On an H100 at b = 128 (f32, chip_smoke.py `chol_kernels`):
-// 0.16 ms, against 0.27 ms for the same loop with a second barrier per
-// step and the column and row staged through shared vectors.
-template <typename T, bool PACKED, bool INV>
+// K3 above 128.  One barrier per step: step j reads column j of A and
+// row j of T as they stand and scales them on the fly (l_k = A[k, j] /
+// sqrt(d)), writing only the trailing triangle and the rows of T below j,
+// which nobody reads in that step.  Column j of A and row j of T are final
+// from step j on, so they stay unscaled and the scale 1 / sqrt(d_j) is kept
+// in dinv[j]; the store writes L[i, k] = A[i, k] dinv[k] (L[j, j] = d
+// dinv[j], gp_tpu's d * rsqrt(d)) and T[i, k] = T[i, k] dinv[i].  The
+// products are gp_tpu's: (A[i, j] dinv[j]) (A[k, j] dinv[j]) and (A[i, j]
+// dinv[j]) (T[j, k] dinv[j]).  What sets its time is the b serial steps on
+// one SM, each a barrier and three shared-memory (or, unpacked, device-
+// memory) accesses per update; times in PERF.md, section 6.
+template <typename T, bool PACKED>
 __global__ void __launch_bounds__(NT)
 chol_rank1(const T* __restrict__ kin, int64_t ldk, T* lout, T* tout,
            int64_t b64) {
@@ -119,10 +120,10 @@ chol_rank1(const T* __restrict__ kin, int64_t ldk, T* lout, T* tout,
     const I k = static_cast<I>(e % b64);
     if (k <= i) {
       a[at<PACKED>(i, k, b)] = kin[static_cast<int64_t>(i) * ldk + k];
-      if (INV) t[at<PACKED>(i, k, b)] = i == k ? T(1) : T(0);
+      t[at<PACKED>(i, k, b)] = i == k ? T(1) : T(0);
     } else if (!PACKED) {
       lout[e] = T(0);
-      if (INV) tout[e] = T(0);
+      tout[e] = T(0);
     }
   }
   __syncthreads();
@@ -137,9 +138,8 @@ chol_rank1(const T* __restrict__ kin, int64_t ldk, T* lout, T* tout,
     for (I i = j + 1 + warp; i < b; i += WARPS) {
       const I ri = at<PACKED>(i, I(0), b);
       const T li = a[ri + j] * inv;
-      if (INV)
-        for (I k = lane; k <= j; k += 32)
-          t[ri + k] = fma_t(-li, t[tj + k] * inv, t[ri + k]);
+      for (I k = lane; k <= j; k += 32)
+        t[ri + k] = fma_t(-li, t[tj + k] * inv, t[ri + k]);
       for (I k = j + 1 + lane; k <= i; k += 32)
         a[ri + k] = fma_t(-li, a[at<PACKED>(k, j, b)] * inv, a[ri + k]);
     }
@@ -153,10 +153,10 @@ chol_rank1(const T* __restrict__ kin, int64_t ldk, T* lout, T* tout,
     const I k = static_cast<I>(e % b64);
     if (k <= i) {
       lout[e] = a[at<PACKED>(i, k, b)] * dinv[k];
-      if (INV) tout[e] = t[at<PACKED>(i, k, b)] * dinv[i];
+      tout[e] = t[at<PACKED>(i, k, b)] * dinv[i];
     } else if (PACKED) {
       lout[e] = T(0);
-      if (INV) tout[e] = T(0);
+      tout[e] = T(0);
     }
   }
 }
@@ -198,6 +198,11 @@ chol_rank1(const T* __restrict__ kin, int64_t ldk, T* lout, T* tout,
 //
 // The store scales as chol_rank1 does: L[i, k] = lt[k][i] dinv[k], L[j, j]
 // = d dinv[j], T[i, k] = W[i, k] dinv[i]; zeros above the diagonal.
+//
+// K4's leaf is the same kernel (chol_inv_reg_alias): L goes out with a row
+// stride ldo, so the blocked form factors a diagonal block of its output
+// in place, and T's store is left out where nobody reads T (STORE_T =
+// false); T's column work stays, so the arithmetic is K3's.
 __device__ __forceinline__ void ld4(const float* p, float& a, float& b,
                                     float& c, float& d) {
   const float4 v = *reinterpret_cast<const float4*>(p);
@@ -219,10 +224,10 @@ __device__ __forceinline__ void st4(double* p, double a, double b, double c,
   reinterpret_cast<double2*>(p)[1] = make_double2(c, d);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT, 1)
-chol_inv_reg(const T* __restrict__ kin, int64_t ldk, T* __restrict__ lout,
-             T* __restrict__ tout, int b) {
+template <typename T, bool STORE_T>
+__device__ __forceinline__ void
+inv_reg_body(const T* kin, int64_t ldk, T* lout, int64_t ldo, T* tout,
+             int b) {
   static_assert(WARPS * RT == RB && 32 * RT == RB, "one tile a thread");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* lt = reinterpret_cast<T*>(smem_raw);   // (RB, LDT): lt[j] = A[:, j]
@@ -299,24 +304,51 @@ chol_inv_reg(const T* __restrict__ kin, int64_t ldk, T* __restrict__ lout,
   }
   __syncthreads();
 
+  if (STORE_T) {
 #pragma unroll
-  for (int r = 0; r < RT; ++r) {
-    const int i = i0 + r;
-    if (i < b) {
-      const T s = dinv[i];
+    for (int r = 0; r < RT; ++r) {
+      const int i = i0 + r;
+      if (i < b) {
+        const T s = dinv[i];
 #pragma unroll
-      for (int c = 0; c < RT; ++c) {
-        const int k = k0 + c;
-        if (k < b)
-          tout[static_cast<int64_t>(i) * b + k] = k <= i ? w[r][c] * s : T(0);
+        for (int c = 0; c < RT; ++c) {
+          const int k = k0 + c;
+          if (k < b)
+            tout[static_cast<int64_t>(i) * b + k] =
+                k <= i ? w[r][c] * s : T(0);
+        }
       }
     }
   }
   for (int e = threadIdx.x; e < b * b; e += NT) {
     const int i = e / b;
     const int k = e % b;
-    lout[e] = k <= i ? lt[k * LDT + i] * dinv[k] : T(0);
+    lout[static_cast<int64_t>(i) * ldo + k] =
+        k <= i ? lt[k * LDT + i] * dinv[k] : T(0);
   }
+}
+
+// K3: the outputs are dense b x b buffers of their own.  Its pointers are
+// __restrict__, which K4's in-place leaf cannot have: launching K3 through
+// chol_inv_reg_alias<T, true> instead cost 0.6 us (f32) and 1.1 us (f64) a
+// launch at b = 128, 1.2-1.3 % (PERF.md section 6), and K3 is launched 64
+// times a factorization.
+template <typename T>
+__global__ void __launch_bounds__(NT, 1)
+chol_inv_reg(const T* __restrict__ kin, int64_t ldk, T* __restrict__ lout,
+             T* __restrict__ tout, int b) {
+  inv_reg_body<T, true>(kin, ldk, lout, b, tout, b);
+}
+
+// K4's leaf: kin and lout may be one block (in place), so neither is
+// __restrict__.  Every read of kin precedes the step loop's first barrier
+// and every write of lout follows its last, so the block reads K whole
+// before it writes L.
+template <typename T, bool STORE_T>
+__global__ void __launch_bounds__(NT, 1)
+chol_inv_reg_alias(const T* kin, int64_t ldk, T* lout, int64_t ldo,
+                   T* __restrict__ tout, int b) {
+  inv_reg_body<T, STORE_T>(kin, ldk, lout, ldo, tout, b);
 }
 
 template <typename T>
@@ -406,6 +438,197 @@ chol_panel(const T* __restrict__ kin, int64_t ldk, T* __restrict__ l,
   // its panel's first row
 }
 
+// K4 above 128: a blocked right-looking factorization in L, the output,
+// by a host loop of launches (chol_blocked below).  L starts as the lower
+// triangle of K; then for each panel of NB columns at p, while rows are
+// left below it:
+//   (a) the leaf on the diagonal block, in place: L_pp and T_pp = L_pp^-1
+//       (to a workspace), chol_inv_reg_alias<T, true>;
+//   (b) the panel solve L[p+NB:, p:p+NB] = A[p+NB:, p:p+NB] T_pp^T, in
+//       place, chol_panel_solve: one CTA a band of PB rows;
+//   (c) the trailing update A_IJ -= L_Ip L_Jp^T on the 64 x 64 tiles with
+//       I >= J, one CTA a tile, chol_trailing; on a diagonal tile only
+//       entries on and below the diagonal are written, so nothing, NaN
+//       included, lands above it.
+// The last panel (NB rows or fewer) is the leaf alone.  A failing pivot
+// makes its leaf's column and T's rows from it NaN; the panel solve and
+// the trailing update carry the NaN to every later column, and the
+// columns before it stay finite: the plain loop's mask.
+//
+// (b) and (c) are one product, C = A B^T over the panel's NB columns:
+// gemm_abt stages 16-deep chunks of A and B through shared memory, k-major,
+// and each of 16 x 16 threads keeps a (BM / 16) x (BN / 16) register tile
+// of full-precision FMAs (no tensor cores).  Their flops are spread over
+// the SMs; the b / NB leaves, one SM each and one after another, take
+// most of the time.
+// NB = 64 against 128, measured once on the H100 at b = 1024 (PERF.md
+// section 6): a tie in float32, 64 some 11 % faster in float64; its 16
+// leaves of 64 take less time than 8 of 128, and the serial leaves set
+// K4's time.  ops/chol_block.K4_PANEL is its copy (the workspace's side).
+constexpr int NB = 64;     // K4 above RB: the panel width
+constexpr int UT = 64;     // K4 trailing update: a CTA's tile is UT x UT
+constexpr int PB = 32;     // K4 panel solve: rows of a CTA's band
+constexpr int UKC = 16;    // K4 updates: depth of a staged chunk
+constexpr int UNT = 256;   // K4 updates: threads per CTA, 16 x 16
+
+// column of a BN-wide tile that entry j of thread tx's register tile
+// holds: groups of 4 consecutive columns, 64 apart, so that 16 lanes read
+// a group's 64 columns as one conflict-free run of 16-byte words
+__device__ __forceinline__ int tile_col(int tx, int j) {
+  return (j / 4) * 64 + 4 * tx + j % 4;
+}
+
+// a thread's share of one chunk of X (rows, depth) at x, row stride ld:
+// columns k0..k0+UKC of its rows; rows from valid on, and columns from
+// depth on, read as zero
+template <typename T, int L>
+__device__ __forceinline__ void fetch(const T* x, int64_t ld, int valid,
+                                      int k0, int depth, T (&reg)[L]) {
+#pragma unroll
+  for (int q = 0; q < L; ++q) {
+    const int e = threadIdx.x + q * UNT;
+    const int r = e / UKC;
+    const int k = k0 + e % UKC;
+    reg[q] = (r < valid && k < depth) ? x[r * ld + k] : T(0);
+  }
+}
+
+// acc += A B^T for a BM x BN tile: A (BM, depth) at a, row stride lda, B
+// (BN, depth) at bm, row stride ldb; rows of A from ma on and of B from nb
+// on read as zero.  Thread (ty, tx) owns rows RM ty.. and the columns
+// tile_col(tx, 0..RN-1).  The next chunk's loads from device memory are in
+// flight while the current one is multiplied.  It ends on a barrier, so
+// every read the CTA makes of A and B precedes the return.
+template <typename T, int BM, int BN>
+__device__ __forceinline__ void gemm_abt(const T* a, int64_t lda, int ma,
+                                         const T* bm, int64_t ldb, int nb,
+                                         int depth,
+                                         T (&acc)[BM / 16][BN / 16]) {
+  constexpr int RM = BM / 16;
+  constexpr int RN = BN / 16;
+  constexpr int LA = BM * UKC / UNT;   // entries a thread stages per chunk
+  constexpr int LB = BN * UKC / UNT;
+  static_assert(RN % 4 == 0 && LA * UNT == BM * UKC && LB * UNT == BN * UKC,
+                "tile shape");
+  __shared__ __align__(16) T as[UKC][BM + 4];
+  __shared__ __align__(16) T bs[UKC][BN + 4];
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  T ra[LA];
+  T rb[LB];
+  fetch(a, lda, ma, 0, depth, ra);
+  fetch(bm, ldb, nb, 0, depth, rb);
+  for (int k0 = 0; k0 < depth; k0 += UKC) {
+#pragma unroll
+    for (int q = 0; q < LA; ++q) {
+      const int e = threadIdx.x + q * UNT;
+      as[e % UKC][e / UKC] = ra[q];
+    }
+#pragma unroll
+    for (int q = 0; q < LB; ++q) {
+      const int e = threadIdx.x + q * UNT;
+      bs[e % UKC][e / UKC] = rb[q];
+    }
+    __syncthreads();
+    if (k0 + UKC < depth) {
+      fetch(a, lda, ma, k0 + UKC, depth, ra);
+      fetch(bm, ldb, nb, k0 + UKC, depth, rb);
+    }
+#pragma unroll
+    for (int k = 0; k < UKC; ++k) {
+      T x[RM];
+      T y[RN];
+      if constexpr (RM % 4 == 0) {
+#pragma unroll
+        for (int i = 0; i < RM; i += 4)
+          ld4(&as[k][RM * ty + i], x[i], x[i + 1], x[i + 2], x[i + 3]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < RM; ++i) x[i] = as[k][RM * ty + i];
+      }
+#pragma unroll
+      for (int j = 0; j < RN; j += 4)
+        ld4(&bs[k][tile_col(tx, j)], y[j], y[j + 1], y[j + 2], y[j + 3]);
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < RN; ++j) acc[i][j] = fma_t(x[i], y[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+}
+
+// L = lower triangle of K, zeros above; scalar loads, as K may be a
+// misaligned block of a larger matrix
+template <typename T>
+__global__ void __launch_bounds__(UNT)
+chol_copy_lower(const T* __restrict__ kin, int64_t ldk, T* __restrict__ l,
+                int64_t b) {
+  const int64_t step = static_cast<int64_t>(gridDim.x) * UNT;
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * UNT + threadIdx.x;
+       e < b * b; e += step) {
+    const int64_t i = e / b;
+    const int64_t k = e % b;
+    l[e] = k <= i ? kin[i * ldk + k] : T(0);
+  }
+}
+
+// (b): rows r0.. of the band, all NB columns of panel p.  The CTA reads
+// only its own band (and T_pp), and all of it before it writes.
+template <typename T>
+__global__ void __launch_bounds__(UNT)
+chol_panel_solve(T* l, int64_t b, int64_t p, const T* __restrict__ tpp) {
+  const int64_t r0 = p + NB + static_cast<int64_t>(PB) * blockIdx.x;
+  const int rows = static_cast<int>(b - r0 < PB ? b - r0 : PB);
+  T* band = l + r0 * b + p;
+  T acc[PB / 16][NB / 16] = {};
+  gemm_abt<T, PB, NB>(band, b, rows, tpp, NB, NB, NB, acc);
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < PB / 16; ++i) {
+    const int r = PB / 16 * ty + i;
+    if (r < rows) {
+#pragma unroll
+      for (int j = 0; j < NB / 16; ++j)
+        band[r * b + tile_col(tx, j)] = acc[i][j];
+    }
+  }
+}
+
+// (c): tile (I, J) = (blockIdx.y, blockIdx.x) of the trailing matrix from
+// row and column p + NB; the tiles above the diagonal return at once.  It
+// reads the panel's columns, which no CTA of this launch writes.
+template <typename T>
+__global__ void __launch_bounds__(UNT)
+chol_trailing(T* l, int64_t b, int64_t p) {
+  const int ti = blockIdx.y;
+  const int tj = blockIdx.x;
+  if (tj > ti) return;
+  const int64_t q = p + NB;
+  const int64_t r0 = q + static_cast<int64_t>(UT) * ti;
+  const int64_t c0 = q + static_cast<int64_t>(UT) * tj;
+  const int rows = static_cast<int>(b - r0 < UT ? b - r0 : UT);
+  const int cols = static_cast<int>(b - c0 < UT ? b - c0 : UT);
+  T acc[UT / 16][UT / 16] = {};
+  gemm_abt<T, UT, UT>(l + r0 * b + p, b, rows, l + c0 * b + p, b, cols, NB,
+                      acc);
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < UT / 16; ++i) {
+    const int r = UT / 16 * ty + i;
+#pragma unroll
+    for (int j = 0; j < UT / 16; ++j) {
+      const int c = tile_col(tx, j);
+      if (r < rows && c < cols && (ti != tj || c <= r)) {
+        T* o = l + (r0 + r) * b + c0 + c;
+        *o -= acc[i][j];
+      }
+    }
+  }
+}
+
 // the shared memory a block may opt in to, read once (every card of a
 // process is taken to be the same model)
 int max_smem() {
@@ -432,7 +655,7 @@ cudaError_t allow_smem(F* kernel, size_t bytes, size_t total,
   return err;
 }
 
-template <typename T, bool INV>
+template <typename T>
 int launch_rank1(const void* k, int64_t ldk, void* l, void* t, int64_t b,
                  void* stream) {
   if (b <= 0) return 0;
@@ -442,25 +665,30 @@ int launch_rank1(const void* k, int64_t ldk, void* l, void* t, int64_t b,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t vec = static_cast<size_t>(b) * sizeof(T);   // dinv
   const size_t tri = static_cast<size_t>(b) * (b + 1) / 2 * sizeof(T);
-  const size_t packed = vec + (INV ? 2 : 1) * tri;
+  const size_t packed = vec + 2 * tri;
   const size_t limit = static_cast<size_t>(max_smem());
   const T* pk = static_cast<const T*>(k);
   T* pl = static_cast<T*>(l);
   T* pt = static_cast<T*>(t);
   if (packed <= limit) {
     cudaError_t err =
-        allow_smem(chol_rank1<T, true, INV>, packed, packed,
-                   &allowed_packed);
+        allow_smem(chol_rank1<T, true>, packed, packed, &allowed_packed);
     if (err != cudaSuccess) return static_cast<int>(err);
-    chol_rank1<T, true, INV><<<1, NT, packed, s>>>(pk, ldk, pl, pt, b);
+    chol_rank1<T, true><<<1, NT, packed, s>>>(pk, ldk, pl, pt, b);
   } else {
     if (vec > limit) return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err =
-        allow_smem(chol_rank1<T, false, INV>, vec, vec, &allowed_global);
+        allow_smem(chol_rank1<T, false>, vec, vec, &allowed_global);
     if (err != cudaSuccess) return static_cast<int>(err);
-    chol_rank1<T, false, INV><<<1, NT, vec, s>>>(pk, ldk, pl, pt, b);
+    chol_rank1<T, false><<<1, NT, vec, s>>>(pk, ldk, pl, pt, b);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// the register kernel's dynamic shared memory: column store, v, dinv
+template <typename T>
+constexpr size_t reg_smem() {
+  return static_cast<size_t>(RB * LDT + 3 * RB) * sizeof(T);
 }
 
 template <typename T>
@@ -469,13 +697,74 @@ int launch_inv_reg(const void* k, int64_t ldk, void* l, void* t, int64_t b,
   if (b <= 0) return 0;
   if (b > RB || ldk < b) return static_cast<int>(cudaErrorInvalidValue);
   static size_t allowed = 0;
-  const size_t bytes = static_cast<size_t>(RB * LDT + 3 * RB) * sizeof(T);
+  const size_t bytes = reg_smem<T>();
   cudaError_t err = allow_smem(chol_inv_reg<T>, bytes, bytes, &allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
   chol_inv_reg<T><<<1, NT, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(k), ldk, static_cast<T*>(l), static_cast<T*>(t),
       static_cast<int>(b));
   return static_cast<int>(cudaGetLastError());
+}
+
+// K4's leaf on the b x b block at k (b <= RB): L to l (row stride ldo; in
+// place where l == k), and T = L^-1 to t (dense b x b) if STORE_T
+template <typename T, bool STORE_T>
+cudaError_t leaf(const T* k, int64_t ldk, T* l, int64_t ldo, T* t, int64_t b,
+                 cudaStream_t s) {
+  static size_t allowed = 0;
+  const size_t bytes = reg_smem<T>();
+  cudaError_t err =
+      allow_smem(chol_inv_reg_alias<T, STORE_T>, bytes, bytes, &allowed);
+  if (err != cudaSuccess) return err;
+  chol_inv_reg_alias<T, STORE_T><<<1, NT, bytes, s>>>(
+      k, ldk, l, ldo, t, static_cast<int>(b));
+  return cudaGetLastError();
+}
+
+// K4 above RB, panels of NB columns (see chol_panel_solve); ws holds T_pp
+template <typename T>
+cudaError_t chol_blocked(const T* k, int64_t ldk, T* l, T* ws, int64_t b,
+                         cudaStream_t s) {
+  static_assert(NB <= RB && NB % 64 == 0 && NB % UKC == 0, "panel width");
+  const int64_t copy_blocks = (b * b + UNT - 1) / UNT;
+  const unsigned grid =
+      static_cast<unsigned>(copy_blocks < 65535 ? copy_blocks : 65535);
+  chol_copy_lower<T><<<grid, UNT, 0, s>>>(k, ldk, l, b);
+  cudaError_t err = cudaGetLastError();
+  int64_t p = 0;
+  for (; err == cudaSuccess && b - p > NB; p += NB) {
+    T* d = l + p * b + p;
+    err = leaf<T, true>(d, b, d, b, ws, NB, s);
+    if (err != cudaSuccess) break;
+    const int64_t below = b - p - NB;
+    const unsigned bands = static_cast<unsigned>((below + PB - 1) / PB);
+    const unsigned tiles = static_cast<unsigned>((below + UT - 1) / UT);
+    chol_panel_solve<T><<<bands, UNT, 0, s>>>(l, b, p, ws);
+    chol_trailing<T><<<dim3(tiles, tiles), UNT, 0, s>>>(l, b, p);
+    err = cudaGetLastError();
+  }
+  if (err != cudaSuccess) return err;
+  T* d = l + p * b + p;
+  return leaf<T, false>(d, b, d, b, nullptr, b - p, s);
+}
+
+// K4: the register leaf up to RB, the blocked form above it (ws is an
+// NB x NB workspace there)
+template <typename T>
+int launch_chol(const void* k, int64_t ldk, void* l, void* ws, int64_t b,
+                void* stream) {
+  if (b <= 0) return 0;
+  if (ldk < b) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* pk = static_cast<const T*>(k);
+  T* pl = static_cast<T*>(l);
+  T* pw = static_cast<T*>(ws);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (b <= RB)
+    err = leaf<T, false>(pk, ldk, pl, b, nullptr, b, s);
+  else if (pw != nullptr)
+    err = chol_blocked<T>(pk, ldk, pl, pw, b, s);
+  return static_cast<int>(err);
 }
 
 template <typename T>
@@ -504,16 +793,18 @@ int launch_panel(const void* k, int64_t ldk, void* l, int64_t b, int64_t w,
 // panel GEMM does).  l, t (b, b) row-major outputs, lower triangular,
 // zeros above.  w: K5's panel width, b % w == 0.  chol_inv_reg_* is K3
 // for b <= 128 (chol_inv_reg), chol_inv_* K3 for any b (chol_rank1); the
-// wrapper (ops/chol_block.py) picks by b.  Each returns the cudaError_t of
-// the launch.
+// wrapper (ops/chol_block.py) picks by b.  chol_* is K4 for any b: one
+// launch up to 128, above it a loop of launches with panels of NB = 64
+// columns and ws an NB x NB workspace.  Each returns the cudaError_t of
+// its launches (the first that failed).
 extern "C" int chol_inv_f32(const void* k, int64_t ldk, void* l, void* t,
                             int64_t b, void* stream) {
-  return launch_rank1<float, true>(k, ldk, l, t, b, stream);
+  return launch_rank1<float>(k, ldk, l, t, b, stream);
 }
 
 extern "C" int chol_inv_f64(const void* k, int64_t ldk, void* l, void* t,
                             int64_t b, void* stream) {
-  return launch_rank1<double, true>(k, ldk, l, t, b, stream);
+  return launch_rank1<double>(k, ldk, l, t, b, stream);
 }
 
 extern "C" int chol_inv_reg_f32(const void* k, int64_t ldk, void* l,
@@ -526,14 +817,14 @@ extern "C" int chol_inv_reg_f64(const void* k, int64_t ldk, void* l,
   return launch_inv_reg<double>(k, ldk, l, t, b, stream);
 }
 
-extern "C" int chol_f32(const void* k, int64_t ldk, void* l, int64_t b,
-                        void* stream) {
-  return launch_rank1<float, false>(k, ldk, l, nullptr, b, stream);
+extern "C" int chol_f32(const void* k, int64_t ldk, void* l, void* ws,
+                        int64_t b, void* stream) {
+  return launch_chol<float>(k, ldk, l, ws, b, stream);
 }
 
-extern "C" int chol_f64(const void* k, int64_t ldk, void* l, int64_t b,
-                        void* stream) {
-  return launch_rank1<double, false>(k, ldk, l, nullptr, b, stream);
+extern "C" int chol_f64(const void* k, int64_t ldk, void* l, void* ws,
+                        int64_t b, void* stream) {
+  return launch_chol<double>(k, ldk, l, ws, b, stream);
 }
 
 extern "C" int chol_panel_f32(const void* k, int64_t ldk, void* l, int64_t b,

@@ -18,11 +18,14 @@ posterior and every public value are in the original units.
 
 from __future__ import annotations
 
+import os
+import sys
 from typing import Callable
 
 import numpy as np
 import torch
 
+from .. import config
 from ..config import (DBL_EPS, DEFAULT_SEED, INF, as_dtype, default_dtype,
                       resolve_device)
 from ..ops.kernels import KernelSpec, get_kernel
@@ -336,6 +339,16 @@ class GPBase:
         hyps = np.array(_np(init_hyps), np.float64)
         if self._noise_free:
             hyps[-2] = -np.inf
+
+        # gp_tpu's train-start gradient check under GP_TPU_DEBUG
+        # (gp_tpu/models/base.py:405-418, the reference's MYDEBUG build)
+        if config.DEBUG or os.environ.get("GP_TPU_DEBUG", "0") == "1":
+            g, fd, rel = self.check_gradients(hyps)
+            print(f"[GP_TPU_DEBUG] train-start gradient check: "
+                  f"rel_err={rel:.3e}", file=sys.stderr)
+            if not np.isfinite(rel) or rel > 1e-2:
+                print(f"[GP_TPU_DEBUG]   analytic={g}\n"
+                      f"[GP_TPU_DEBUG]   numeric ={fd}", file=sys.stderr)
 
         nlz = self.nll(hyps)
         if not np.isfinite(nlz) or used_defaults:

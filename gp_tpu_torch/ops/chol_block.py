@@ -3,13 +3,19 @@
 Counterpart of gp_tpu/ops/pallas_chol.py:
 
   chol_inv        K3, (L, L^-1) of one block in one launch (_chol_inv_kernel)
-  cholesky_block  K4, L by right-looking rank-1 updates    (_chol_kernel)
+  cholesky_block  K4, L of one block                       (_chol_kernel)
   cholesky_panel  K5, L by left-looking rank-w panels      (_chol_panel_kernel)
 
 K3 has two designs, picked by the block size alone (`k3_entry`): up to
 K3_REG_MAX_B (the blocked factorization's leaf) the register-tiled kernel
 behind the C entry chol_inv_reg, above it the shared-memory rank-1 loop
-chol_rank1 behind chol_inv.
+chol_rank1 behind chol_inv.  K4 (C entry chol) has two forms, also by
+block size: up to K3_REG_MAX_B the same register kernel without T's
+store, one launch; above it a blocked right-looking factorization, a
+host loop of launches in the C entry: per panel of K4_PANEL columns the
+register leaf in place, a panel solve and a trailing update across the
+card's SMs, then the last panel's leaf.  Its workspace (the diagonal
+block's inverse) comes from torch's allocator.
 
 Dispatch is by the device of the tensor alone, as in se_tile.py.  A CUDA
 tensor launches the kernel (float32 or float64) or raises; a CPU tensor
@@ -17,8 +23,10 @@ runs the plain version (`chol_inv_plain`, `cholesky_block_plain`,
 `cholesky_panel_plain`): gp_tpu's loops in torch ops, on the live part of
 the matrix only, which the tests hold against gp_tpu's kernels in
 interpret mode and chip_smoke.py holds the kernels against on the card.
-`launches[entry]` counts kernel launches by C entry point (K3:
-chol_inv_reg or chol_inv; K4: chol; K5: chol_panel), one per launch, and
+`launches[entry]` counts calls of each C entry point (K3: chol_inv_reg
+or chol_inv; K4: chol; K5: chol_panel) that launched their kernels: one
+per wrapper call on a CUDA tensor, however many kernels the entry
+launches (K4's blocked form launches 3 ceil(b / K4_PANEL) - 1), and
 nothing else.
 
 Failure contract, gp_tpu's: a non-positive pivot gives NaN in that column
@@ -45,8 +53,14 @@ from . import _build
 launches = dict.fromkeys(("chol_inv_reg", "chol_inv", "chol", "chol_panel"),
                          0)
 
-# the largest block K3's register kernel takes (its 128 x 128 square)
+# the largest block K3's register kernel takes (its 128 x 128 square);
+# K4 takes the same kernel up to it
 K3_REG_MAX_B = 128
+
+# K4's panel width above K3_REG_MAX_B: a copy of NB in csrc/chol_block.cu,
+# which is compiled in (why 64: the comment there).  It sizes the
+# workspace; changing it here changes nothing else.
+K4_PANEL = 64
 
 
 def reset_launches() -> None:
@@ -61,9 +75,9 @@ def k3_entry(b: int) -> str:
 
 _ENTRY = {"cholesky_block": "chol", "cholesky_panel": "chol_panel"}
 _P, _I = ctypes.c_void_p, ctypes.c_int64
-# (k, ldk, outputs..., b[, w], stream)
+# (k, ldk, outputs or output and workspace, b[, w], stream)
 _ARGTYPES = {"chol_inv": [_P, _I, _P, _P, _I, _P],
-             "cholesky_block": [_P, _I, _P, _I, _P],
+             "cholesky_block": [_P, _I, _P, _P, _I, _P],
              "cholesky_panel": [_P, _I, _P, _I, _I, _P]}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -92,9 +106,11 @@ def _check_w(b: int, w: int) -> None:
 
 
 def _launch(wrapper: str, K, *extra):
-    """One launch of `wrapper`'s kernel on K; returns its outputs.  K may
-    be a block of a larger matrix: rows of unit stride are read in place
-    (the kernel takes the row stride), anything else is copied first."""
+    """One call of `wrapper`'s C entry on K, which launches its kernels;
+    returns its outputs.  K may be a block of a larger matrix: rows of
+    unit stride are read in place (the entry takes the row stride),
+    anything else is copied first.  `extra` goes to the entry after b
+    (K5's w)."""
     if K.dtype not in _SUFFIX:
         raise TypeError(f"{wrapper}: the CUDA kernel takes float32 or "
                         f"float64, not {K.dtype}")
@@ -107,9 +123,16 @@ def _launch(wrapper: str, K, *extra):
         return outs
     entry = k3_entry(b) if wrapper == "chol_inv" else _ENTRY[wrapper]
     fn = _kernel_fn(entry, wrapper, K.dtype)
+    ptrs = [o.data_ptr() for o in outs]
+    if wrapper == "cholesky_block":
+        # K4's second buffer is the blocked form's workspace: T_pp, the
+        # diagonal block's inverse (none up to K3_REG_MAX_B)
+        ws = (torch.empty((K4_PANEL, K4_PANEL), dtype=K.dtype,
+                          device=K.device) if b > K3_REG_MAX_B else None)
+        ptrs.append(None if ws is None else ws.data_ptr())
     with torch.cuda.device(K.device):
-        rc = fn(K.data_ptr(), K.stride(0), *[o.data_ptr() for o in outs], b,
-                *extra, torch.cuda.current_stream(K.device).cuda_stream)
+        rc = fn(K.data_ptr(), K.stride(0), *ptrs, b, *extra,
+                torch.cuda.current_stream(K.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{wrapper}: chol_block launch (b={b}) failed "
                            f"with CUDA error {rc}")

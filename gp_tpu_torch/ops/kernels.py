@@ -206,6 +206,15 @@ SE_ISO = KernelSpec(
 
 KERNELS = {"se_ard": SE_ARD, "se_iso": SE_ISO}
 
+# gp_tpu's names for its two SE builds (gp_tpu/ops/kernels.py:256-279),
+# which its CLI offers and its checkpoints store: on its TPU the _pallas
+# specs take the fused tile and the _xla specs the plain formula.  Here
+# one dispatch rule serves every name (a CUDA tensor takes the CUDA tile
+# kernel, a CPU tensor its plain version), so each is SE_ARD or SE_ISO
+# under its own name.
+KERNELS.update({f"{s.name}_{v}": s._replace(name=f"{s.name}_{v}")
+                for s in (SE_ARD, SE_ISO) for v in ("pallas", "xla")})
+
 
 def get_kernel(name_or_spec) -> KernelSpec:
     """Factory mirroring GP::_specify_cov (GP.cpp:575-587)."""

@@ -4,6 +4,7 @@
     python3 scripts/blocked_profile.py [--n 8000] [--reps 3]
     python3 scripts/blocked_profile.py --count-ops [--n 8000]
     python3 scripts/blocked_profile.py --leaf-sweep
+    python3 scripts/blocked_profile.py --k4-panel
 
 Builds the SE covariance of chip_smoke.py's data (unit sf2, lengthscales
 std sqrt(d), noise 0.1) at N rows and runs the blocked route's factor
@@ -27,6 +28,11 @@ device, the leaves replaced by empty outputs) and prints them by name.
 register kernel's range), per dtype: one CUDA graph of 50 launches on
 one SPD block, replayed, so no host time comes between the launches.
 Microseconds per launch, and per step of the b-step loop.
+
+--k4-panel times K4 (`cholesky_block`) at b = 256, 512 and 1024, in its
+blocked form (panels of 64), beside `cholesky_ex`, per dtype; then a
+b = 1024 call's device time by kernel name (torch.profiler): the leaves
+against the panel solves and trailing updates.
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--count-ops", action="store_true")
     ap.add_argument("--leaf-sweep", action="store_true")
+    ap.add_argument("--k4-panel", action="store_true")
     args = ap.parse_args()
     import torch
     if args.count_ops:
@@ -68,6 +75,11 @@ def main() -> int:
     if args.leaf_sweep:
         for dtype in (torch.float32, torch.float64):
             print(json.dumps(leaf_sweep(torch, dtype, cuda_ms, smi_line)),
+                  flush=True)
+        return 0
+    if args.k4_panel:
+        for dtype in (torch.float32, torch.float64):
+            print(json.dumps(k4_panel(torch, dtype, cuda_ms, smi_line)),
                   flush=True)
         return 0
     from gp_tpu_torch.ops import chol as chol_mod
@@ -152,6 +164,42 @@ def leaf_sweep(torch, dtype, cuda_ms, smi_line, launches: int = 50) -> dict:
     return {"dtype": str(dtype).split(".")[-1], "kernel": cb.k3_entry(128),
             "launches_per_graph": launches, "us_per_launch": us,
             "us_per_step": {b: t / b for b, t in us.items()},
+            "card": torch.cuda.get_device_name(0), "nvidia_smi": smi_line()}
+
+
+def k4_panel(torch, dtype, cuda_ms, smi_line, reps: int = 5) -> dict:
+    """K4's CUDA-event milliseconds against b, beside cholesky_ex's, and a
+    b = 1024 call's device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    from gp_tpu_torch.ops import chol_block as cb
+    ms = {}
+    for b in (256, 512, 1024):
+        g = torch.Generator(device="cuda").manual_seed(b)
+        A = torch.randn(b, b, generator=g, dtype=torch.float64,
+                        device="cuda")
+        K = (A @ A.T + b * torch.eye(b, dtype=torch.float64,
+                                     device="cuda")).to(dtype)
+        ms[b] = {"cholesky_block": cuda_ms(torch,
+                                           lambda: cb.cholesky_block(K)),
+                 "cholesky_ex": cuda_ms(
+                     torch, lambda: torch.linalg.cholesky_ex(K))}
+    cb.cholesky_block(K)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            cb.cholesky_block(K)
+        torch.cuda.synchronize()
+    by_kernel = sorted(
+        ((device_us(e) / reps, e.count // reps, e.key)
+         for e in prof.key_averages() if device_us(e) > 0
+         and (getattr(e, "device_type", None) is None
+              or "CUDA" in str(e.device_type))), reverse=True)
+    return {"dtype": str(dtype).split(".")[-1], "ms": ms,
+            "panel": cb.K4_PANEL,
+            "b1024_device_ms_by_kernel": [
+                {"kernel": k[:90], "ms": us / 1e3, "calls": c}
+                for us, c, k in by_kernel[:8]],
             "card": torch.cuda.get_device_name(0), "nvidia_smi": smi_line()}
 
 

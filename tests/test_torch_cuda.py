@@ -169,6 +169,45 @@ def test_chol_kernels_nan_on_indefinite(cuda, dtype, bad):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b", [1, 7, 128, 129, 200, 256, 1000, 1024])
+def test_cholesky_block_matches_plain(cuda, dtype, b):
+    """K4 in both forms: the register kernel up to 128, the blocked form
+    above it (full and ragged last panels); one count of its C entry per
+    call, however many kernels it launched."""
+    K = _block_spd(cuda, dtype, b, seed=2)
+    chol_block.reset_launches()
+    L = chol_block.cholesky_block(K)
+    torch.cuda.synchronize()
+    assert chol_block.launches == {"chol_inv_reg": 0, "chol_inv": 0,
+                                   "chol": 1, "chol_panel": 0}
+    assert _rel(L, chol_block.cholesky_block_plain(K)) <= CHOL_TOL[dtype]
+    assert not bool(torch.triu(L, 1).any())
+    # a misaligned block of a larger matrix, read in place
+    big = torch.zeros(b + 7, b + 7, dtype=dtype, device=cuda)
+    big[3:3 + b, 5:5 + b] = K
+    assert torch.equal(chol_block.cholesky_block(big[3:3 + b, 5:5 + b]), L)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b,bad", [(128, 0), (128, 20), (128, 127),
+                                   (1024, 0), (1024, 200), (1024, 1023)])
+def test_cholesky_block_nan_mask(cuda, dtype, b, bad):
+    """K4's NaN mask equals its plain version's: the register kernel at
+    b = 128, the blocked form at 1024 (pivot 200 fails inside the second
+    panel, 1023 in the last leaf); nothing NaN above the diagonal and the
+    columns before the pivot as the plain version has them."""
+    K = _block_spd(cuda, dtype, b, seed=7)
+    K[bad, bad] = -1e3
+    L = chol_block.cholesky_block(K)
+    P = chol_block.cholesky_block_plain(K)
+    assert torch.equal(torch.isnan(L), torch.isnan(P))
+    assert not bool(torch.triu(L, 1).any())
+    if bad:
+        assert _rel(L[:, :bad], P[:, :bad]) <= CHOL_TOL[dtype]
+    assert not bool(chol.chol_ok(L))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_blocked_route_matches_library(cuda, dtype):
     """N = 2100 on the blocked route (padded to 3072: three panels of
     eight K3 leaves) against the library route; and the default route:

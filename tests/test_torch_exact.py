@@ -246,6 +246,32 @@ def test_set_k_inflates_noise_like_gp_tpu():
     assert np.all(np.isfinite(_n(at)))
 
 
+@pytest.mark.parametrize("rel_err", [None, 0.5])
+def test_debug_train_start_gradient_check(monkeypatch, capsys, rel_err):
+    """GP_TPU_DEBUG=1: train() first runs check_gradients and prints its
+    rel_err to stderr, and both gradients when rel_err > 1e-2 (gp_tpu's
+    messages, gp_tpu/models/base.py:405-418); without it, nothing."""
+    X, y = _problem(n=40, d=3, seed=4)
+    monkeypatch.delenv("GP_TPU_DEBUG", raising=False)
+    TGP(X, y, device="cpu").train()
+    assert "GP_TPU_DEBUG" not in capsys.readouterr().err
+    monkeypatch.setenv("GP_TPU_DEBUG", "1")
+    gt = TGP(X, y, device="cpu")
+    if rel_err is not None:       # a gradient that disagrees
+        check = gt.check_gradients
+        monkeypatch.setattr(gt, "check_gradients", lambda h: (
+            *check(h)[:2], rel_err))
+    gt.train()
+    err = capsys.readouterr().err
+    if rel_err is None:
+        rel = float(err.split("rel_err=")[1].split()[0])
+        assert rel < 1e-5 and "analytic=" not in err
+    else:
+        assert "rel_err=5.000e-01" in err
+        assert "[GP_TPU_DEBUG]   analytic=[" in err
+        assert "[GP_TPU_DEBUG]   numeric =[" in err
+
+
 def test_default_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     X, y = _problem(n=20, d=3)

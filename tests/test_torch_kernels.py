@@ -16,14 +16,19 @@ import numpy as np
 import pytest
 import torch
 
+import gp_tpu
 import gp_tpu.ops.pallas_kernels as pk
+from gp_tpu.models import exact as je
 from gp_tpu.ops import kernels as jk
 from gp_tpu.ops import sdist as jsd
 from gp_tpu.ops.sdist import sqdist as j_sqdist
+from gp_tpu_torch import GP as TGP
+from gp_tpu_torch.models import exact as te
 from gp_tpu_torch.ops import kernels as tk
 from gp_tpu_torch.ops import se_tile
 from gp_tpu_torch.ops import sdist as tsd
 from gp_tpu_torch.ops.sdist import sqdist as t_sqdist
+from gp_tpu_torch.utils.convert import gp_from_state
 
 SHAPES = [(70, 130, 5), (33, 33, 1), (257, 64, 24)]
 SPECS = {"ard": (jk.SE_ARD, tk.SE_ARD), "iso": (jk.SE_ISO, tk.SE_ISO)}
@@ -207,6 +212,34 @@ def test_k_noise_backward_matches_jax_vjp(which, n_real):
     for a, b in zip(gt, gj):
         np.testing.assert_allclose(_n(a), np.asarray(b), rtol=1e-10,
                                    atol=1e-13)
+
+
+@pytest.mark.parametrize("name", ["se_ard_pallas", "se_iso_pallas",
+                                  "se_ard_xla", "se_iso_xla"])
+def test_kernel_alias_matches_gp_tpu(name):
+    """gp_tpu's four SE build names, which its CLI offers and its
+    checkpoints store: the port's spec under the same name gives gp_tpu's
+    NLL and gradient (off TPU gp_tpu's Pallas wrappers take the plain
+    formula), and gp_from_state builds a model with it."""
+    rng = np.random.default_rng(11)
+    X = rng.uniform(-2, 2, (40, 3))
+    y = (np.sin(2 * X[:, 0]) + 0.3 * X[:, 1] * X[:, 2]
+         + 0.1 * rng.standard_normal(40))
+    gj = gp_tpu.GP(X, y, kernel=name)
+    gt = TGP(X, y, kernel=name, device="cpu")
+    assert gt.kernel.name == gj.kernel.name == name
+    hyp = np.asarray(gj.get_default_hyps(), np.float64)
+    hyp = hyp + rng.uniform(-0.3, 0.3, hyp.shape)
+    fj, g_j = je.nll_vg_raw(gj.kernel, jnp.asarray(hyp), gj._x, gj._y)
+    ft, g_t = te.nll_vg_raw(gt.kernel, _t(hyp), gt._x, gt._y)
+    np.testing.assert_allclose(float(ft), float(fj), rtol=1e-10)
+    g_j = np.asarray(g_j)
+    np.testing.assert_allclose(_n(g_t), g_j, rtol=1e-7,
+                               atol=1e-7 * np.max(np.abs(g_j)))
+    gs = gp_from_state({"x": X, "y": y, "hyps": hyp, "kernel": name},
+                       device="cpu")
+    assert gs.kernel.name == name and gs.trained
+    np.testing.assert_allclose(gs.nll(), float(fj), rtol=1e-10)
 
 
 def test_cpu_builds_launch_no_kernel():
