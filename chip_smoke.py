@@ -12,16 +12,18 @@ line:
   device     the card's name and `nvidia-smi` power limit (also printed
              raw, as nvidia-smi gives it)
   build      seconds to build the kernels, ptxas register/spill report;
-             no form of the register kernel (K3's, K4's leaf) may spill
+             no form of the register kernel (K3's, K4's and K5's leaf),
+             of K5's panel update or of the panel solve may spill
   chol_kernels  K3 (chol_inv), K4 (cholesky_block) and K5 (cholesky_panel)
              against their plain versions, float32 and float64, at
              b = 32, 128, 200 and (K4, K5) 1024, K4 also at 129, 256 and
-             1000 (its blocked form above 128), K5 at w = 32 and 128:
-             error relative to max |L| and max |T|, the C entry each
-             launched, NaN on an indefinite block (failing pivot 0, 20,
-             127; K4's mask equal to its plain version's, also at b = 1024
-             with failing pivots 0, 200, 1023), CUDA-event times, bound,
-             the library's time
+             1000 (its blocked form above 128), K5 at w = 32 and 128 (and
+             256 at b = 1024): error relative to max |L| and max |T|, the
+             C entry each launched, NaN on an indefinite block (failing
+             pivot 0, 20, 127; K4's and K5's masks equal to their plain
+             versions', also at b = 1024 with failing pivots 0, 200, 1023,
+             K5 at w = 32 and 128), CUDA-event times, bound, the library's
+             time
   blocked    the blocked factor and inverse at N = 8000 (padded to 8192,
              block 1024, base 128) with the K3 leaf, with K4 and with K5
              (w = 32) as base_fn, against cholesky_ex + cholesky_inverse:
@@ -174,17 +176,14 @@ def se_bound_ms(m: int, n: int, d: int, dtype: str, symmetric: bool,
                                  else "operations")
 
 
-def chol_bound_ms(b: int, dtype: str, inverse: bool, w=None):
+def chol_bound_ms(b: int, dtype: str, inverse: bool):
     """Least time of one b x b block Cholesky (K4, K5): b^3 / 3 flops, as
-    much again for the inverse (K3); L (and L^-1) written once, and what
-    the function reads of the block read once: its lower triangle, and
-    for K5 at panel width w also the strict upper triangles of the w x w
-    diagonal blocks (the panels' pivot rows).  Plain FMAs: TF32 tensor
-    cores are off in the port."""
+    much again for the inverse (K3); L (and L^-1) written once, and the
+    block's lower triangle, all that each kernel reads of it, read once.
+    Plain FMAs: TF32 tensor cores are off in the port."""
     size = 4 if dtype == "float32" else 8
     flops = (2 if inverse else 1) * b ** 3 / 3
-    read = b * (b + 1) // 2 + (b * (w - 1) // 2 if w else 0)
-    nbytes = size * (read + (2 if inverse else 1) * b * b)
+    nbytes = size * (b * (b + 1) // 2 + (2 if inverse else 1) * b * b)
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -214,6 +213,11 @@ def phase_device(torch) -> dict:
     return info
 
 
+# kernels that may not spill, and their number of compiled forms
+NO_SPILL = {"chol_inv_reg": 6, "chol_panel_update": 2,
+            "chol_panel_solve": 4}
+
+
 def phase_build() -> None:
     from gp_tpu_torch.ops import _build
     seconds, log = _build.build(ptxas_info=True)
@@ -227,14 +231,17 @@ def phase_build() -> None:
             report.append(f"{name}: {ln.strip()}")
     emit("build", seconds=seconds, sources=list(_build.SOURCES),
          ptxas=report)
-    # the register kernel holds its square in registers: a spill would put
-    # it in local memory.  Its forms: K3's chol_inv_reg<T>, K4's leaf
-    # chol_inv_reg_alias<T, STORE_T> (T stored or not), in f32 and f64
-    reg = [ln for ln in report if "chol_inv_reg" in ln and "spill" in ln]
-    spilled = [ln for ln in reg if any(int(n) for n in re.findall(
-        r"(\d+) bytes spill", ln))]
-    check(len(reg) == 6 and not spilled,
-          f"register kernel forms: spill report {reg}")
+    # these hold their tiles in registers: a spill would put them in local
+    # memory.  The register kernel: K3's chol_inv_reg<T> and the leaf of K4
+    # and K5, chol_inv_reg_alias<T, STORE_T> (T stored or not); K5's panel
+    # update; the panel solve at its two widths (K4's 64, and 128); each
+    # in f32 and f64
+    for kernel, forms in NO_SPILL.items():
+        lines = [ln for ln in report if kernel in ln and "spill" in ln]
+        spilled = [ln for ln in lines if any(int(n) for n in re.findall(
+            r"(\d+) bytes spill", ln))]
+        check(len(lines) == forms and not spilled,
+              f"{kernel}: {forms} forms expected, spill report {lines}")
 
 
 def phase_kernels(torch, X) -> dict:
@@ -327,7 +334,11 @@ CHOL_SIZES = (32, 128, 129, 200, 256, 1000, 1024)
 # K4 alone at these: its blocked form's first panel plus one row, two full
 # panels, and a ragged last panel near the top of gp_tpu's range
 K4_ONLY_SIZES = (129, 256, 1000)
-K4_BIG = 1024     # the K4 row of the `kernels` line also reports this b
+K4_BIG = 1024     # the K4/K5 rows of the `kernels` line also report this b
+# K5's panel widths; 256 (above the leaf's 128) divides only b = 1024 here
+K5_WIDTHS = (32, 128, 256)
+# failing pivots: in the first panel, inside a later one, in the last
+NAN_PIVOTS = {128: (0, 20, 127), 1024: (0, 200, 1023)}
 LEAF = 128            # the leaf's size on the main path (base_block)
 LEAVES_PER_FACTOR = 64     # N = 8000 pads to 8192: 8 panels x 8 leaves
 
@@ -364,7 +375,7 @@ def phase_chol_kernels(torch) -> dict:
             if b <= 200 and b not in K4_ONLY_SIZES:
                 cases.insert(0, ("chol_inv", None, lambda: cb.chol_inv(K),
                                  lambda: cb.chol_inv_plain(K), lib_pair))
-            for w in (32, 128):
+            for w in K5_WIDTHS:
                 if b % w == 0 and b not in K4_ONLY_SIZES:
                     cases.append((
                         "cholesky_panel", w,
@@ -390,8 +401,7 @@ def phase_chol_kernels(torch) -> dict:
                 check(not any(bool(torch.triu(o, 1).any()) for o in out),
                       f"{label}: nonzero above the diagonal")
                 iters = 5 if b >= 1024 else 20
-                bound_ms, by = chol_bound_ms(b, dname, name == "chol_inv",
-                                             w)
+                bound_ms, by = chol_bound_ms(b, dname, name == "chol_inv")
                 rec = {"kernel": name, "design": design, "dtype": dname,
                        "b": b, "w": w, "rel_err_L": errs[0],
                        "rel_err_T": errs[1] if len(errs) > 1 else None,
@@ -409,7 +419,7 @@ def phase_chol_kernels(torch) -> dict:
                 emit("chol_kernels", **rec)
         # an indefinite block: NaN from the failing pivot's column on, and
         # K3's NaN where its plain version has them
-        for bad in (0, 20, LEAF - 1):
+        for bad in NAN_PIVOTS[LEAF]:
             K = _block_spd(torch, LEAF, dtype, seed=7)
             K[bad, bad] = -1e3
             L, T = cb.chol_inv(K)
@@ -427,30 +437,38 @@ def phase_chol_kernels(torch) -> dict:
                       and not bool(chol_ok(F)),
                       f"{name} {dname}: no NaN from an indefinite block's "
                       f"failing pivot {bad} on")
-            _check_k4_nan(torch, cb, K, dname, bad, outs["cholesky_block"])
+            _check_nan_mask(torch, "cholesky_block", outs["cholesky_block"],
+                            cb.cholesky_block_plain(K), dname, bad)
+            _check_nan_mask(torch, "cholesky_panel w=32",
+                            outs["cholesky_panel"],
+                            cb.cholesky_panel_plain(K, 32), dname, bad)
             emit("chol_kernels_nan", dtype=dname, b=LEAF, failing_pivot=bad,
                  nan_from_pivot_on=sorted(outs),
-                 k4_mask_equals_plain=True)
-        # K4's blocked form: a pivot failing in the first panel, inside a
-        # later one, and in the last leaf
-        for bad in (0, 200, K4_BIG - 1):
+                 masks_equal_plain=["cholesky_block", "cholesky_panel w=32"])
+        # K4's blocked form and K5's panels at b = 1024
+        for bad in NAN_PIVOTS[K4_BIG]:
             K = _block_spd(torch, K4_BIG, dtype, seed=7)
             K[bad, bad] = -1e3
-            _check_k4_nan(torch, cb, K, dname, bad, cb.cholesky_block(K))
+            _check_nan_mask(torch, "cholesky_block", cb.cholesky_block(K),
+                            cb.cholesky_block_plain(K), dname, bad)
+            for w in (32, 128):
+                _check_nan_mask(torch, f"cholesky_panel w={w}",
+                                cb.cholesky_panel(K, w),
+                                cb.cholesky_panel_plain(K, w), dname, bad)
             emit("chol_kernels_nan", dtype=dname, b=K4_BIG,
-                 failing_pivot=bad, nan_from_pivot_on=["cholesky_block"],
-                 k4_mask_equals_plain=True)
+                 failing_pivot=bad,
+                 masks_equal_plain=["cholesky_block", "cholesky_panel w=32",
+                                    "cholesky_panel w=128"])
     return timed
 
 
-def _check_k4_nan(torch, cb, K, dname: str, bad: int, L) -> None:
-    """K4's NaN mask on an indefinite block is its plain version's, with
-    nothing NaN (or nonzero) above the diagonal."""
-    P = cb.cholesky_block_plain(K)
+def _check_nan_mask(torch, name: str, L, P, dname: str, bad: int) -> None:
+    """A kernel's NaN mask on an indefinite block is its plain version's
+    (P), with nothing NaN (or nonzero) above the diagonal."""
     check(torch.equal(torch.isnan(L), torch.isnan(P))
           and not bool(torch.triu(L, 1).any()),
-          f"cholesky_block {dname} b={K.shape[0]}: NaN mask at failing "
-          f"pivot {bad} is not its plain version's")
+          f"{name} {dname} b={L.shape[0]}: NaN mask at failing pivot "
+          f"{bad} is not its plain version's")
 
 
 def _se_k(torch, X, dtype, noise: float):
@@ -1109,7 +1127,7 @@ def main() -> int:
                     "dtype": "float32"})
         # K3 on every main path; K4 and K5 on the blocked phase, where they
         # are the base_fn of the same factorization.  Times at the leaf's
-        # size (b = 128, K5 at w = 32), f32
+        # size (b = 128, K5 at w = 32), f32; K4 and K5 also at b = 1024
         chol_src = "gp_tpu_torch/csrc/chol_block.cu"
         chol_rows = [("chol_inv", None, 180, "k3_leaf"),
                      ("cholesky_block", None, 41, "k4_base"),
@@ -1138,11 +1156,10 @@ def main() -> int:
                 launches = blocked_launches[(variant, "float32")][design]
                 check(launches > 0, f"{name} was not launched in the "
                       f"blocked phase")
-                if name == "cholesky_block":
-                    big = chol_timed[(name, "float32", K4_BIG, None)]
-                    entry[f"b{K4_BIG}"] = {
-                        k: big[k] for k in ("ms", "library_ms", "bound_ms",
-                                            "bound_by", "max_abs_err")}
+                big = chol_timed[(name, "float32", K4_BIG, w)]
+                entry[f"b{K4_BIG}"] = {
+                    k: big[k] for k in ("ms", "library_ms", "bound_ms",
+                                        "bound_by", "max_abs_err")}
                 kernels.append({**entry, "launches": launches,
                                 "main_path": f"blocked ({variant})"})
     except CheckFailed as exc:

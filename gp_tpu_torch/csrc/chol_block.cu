@@ -11,16 +11,17 @@
 //       a blocked right-looking factorization across the card's SMs
 //       (chol_blocked<T>, below);
 //   K5  _chol_panel_kernel (:87)   L by left-looking rank-w micro-panels:
-//       per panel one GEMM C = K[:, p:p+w] - L L[p:p+w, :]^T, computed
-//       here with shared-memory tiles, then a w-step rank-1 loop on the
-//       panel -- chol_panel<T>.
+//       per panel of w columns at p the update C = K[p:, p:p+w] - L[p:, :p]
+//       L[p:p+w, :p]^T, then the panel's factorization -- a host loop of
+//       launches across the card's SMs (chol_left<T>, below).
 //
 // Step j of the rank-1 loop, as gp_tpu writes it (pallas_chol.py:199-221):
 // d = A[j, j]; L[:, j] = A[:, j] / sqrt(d) below the pivot; A -= L[:, j]
 // L[:, j]^T on the trailing part; row j of T is scaled by 1 / sqrt(d) and
 // T[i, :] -= L[i, j] T[j, :] is pushed into the rows below.  The pivot is
-// d (1 / sqrt(d)) in K3/K4 (gp_tpu's d * rsqrt(d)) and d / sqrt(d) in K5:
-// a zero pivot gives NaN either way (0 inf, 0 / 0), a negative one too
+// d (1 / sqrt(d)) here (gp_tpu's d * rsqrt(d)); gp_tpu's K5 writes d /
+// sqrt(d), one rounding away on the diagonal, well inside the tests'
+// tolerance.  A zero pivot gives NaN (0 inf), a negative one too
 // (sqrt(< 0)), and the NaN reaches every later column through the
 // trailing update -- gp_tpu's failure contract (chol_ok reads a NaN
 // diagonal).  Full-precision FMAs only: no tensor cores, so no TF32.
@@ -36,8 +37,8 @@
 // one barrier to the next -- the shared loads, the live warps' FMAs
 // sharing the SM's four schedulers, the pivot's 1 / sqrt(d) and the
 // barrier itself.  The blocked factorization runs 64 K3 leaves one after
-// another at N = 8192.  K4 above 128 runs its b / NB leaves in sequence
-// too; its updates spread over the SMs and take a small share of its
+// another at N = 8192.  K4 above 128 and K5 run their leaves in sequence
+// too; their GEMMs spread over the SMs and take a smaller share of the
 // time.  Measured times: PERF.md, section 6.
 //
 // Shared memory (chol_rank1, K3 above 128).  The working matrix A and the
@@ -47,10 +48,6 @@
 // in f64), the same loop runs on the output buffers in device memory
 // (PACKED = false: A in L, T in T, full row-major), the vector still in
 // shared memory.  The launcher picks the packed form whenever it fits.
-//
-// K5 keeps its panel in the output buffer L (a (b, w) panel of b = 1024
-// rows does not fit in shared memory in f64) and stages the GEMM's operands
-// through 64 x 32 and 32 x 32 shared tiles.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -60,9 +57,6 @@ namespace {
 
 constexpr int NT = 1024;     // threads per block: 32 warps
 constexpr int WARPS = NT / 32;
-constexpr int TM = 64;       // K5 GEMM: rows of an output tile
-constexpr int TN = 32;       // K5 GEMM: columns of an output tile
-constexpr int KC = 32;       // K5 GEMM: depth of a staged chunk
 constexpr int RB = 128;      // K3 register kernel: the square it holds
 constexpr int RT = 4;        // K3 register kernel: a thread's tile is RT x RT
 constexpr int LDT = RB + RT; // row stride of its column store: 16-byte rows
@@ -351,93 +345,6 @@ chol_inv_reg_alias(const T* kin, int64_t ldk, T* lout, int64_t ldo,
   inv_reg_body<T, STORE_T>(kin, ldk, lout, ldo, tout, b);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT)
-chol_panel(const T* __restrict__ kin, int64_t ldk, T* __restrict__ l,
-           int64_t b, int64_t w) {
-  __shared__ T as[TM][KC + 1];
-  __shared__ T bs[TN][KC + 1];
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* lv = reinterpret_cast<T*>(smem_raw);   // (b,) column c of the panel
-  T* uv = lv + b;                           // (w,) pivot row of the panel
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  for (int64_t p0 = 0; p0 < b; p0 += w) {
-    // 1. C = K[p0:, p0:p0+w] - L[p0:, :p0] L[p0:p0+w, :p0]^T into the
-    //    panel's columns of l; L's columns >= p0 are not factored yet and
-    //    take no part.  Rows < p0 of the panel are zero (upper triangle).
-    for (int64_t e = tid; e < p0 * w; e += NT)
-      l[(e / w) * b + p0 + e % w] = T(0);
-    for (int64_t r0 = p0; r0 < b; r0 += TM) {
-      for (int64_t c0 = 0; c0 < w; c0 += TN) {
-        T acc0 = T(0);
-        T acc1 = T(0);
-        for (int64_t k0 = 0; k0 < p0; k0 += KC) {
-          for (int e = tid; e < TM * KC; e += NT) {
-            const int r = e / KC;
-            const int k = e % KC;
-            const int64_t gr = r0 + r;
-            const int64_t gk = k0 + k;
-            as[r][k] = (gr < b && gk < p0) ? l[gr * b + gk] : T(0);
-          }
-          {
-            const int c = tid / KC;
-            const int k = tid % KC;
-            const int64_t gc = c0 + c;
-            const int64_t gk = k0 + k;
-            bs[c][k] = (gc < w && gk < p0) ? l[(p0 + gc) * b + gk] : T(0);
-          }
-          __syncthreads();
-#pragma unroll 8
-          for (int k = 0; k < KC; ++k) {
-            const T bv = bs[lane][k];
-            acc0 = fma_t(as[warp][k], bv, acc0);
-            acc1 = fma_t(as[warp + WARPS][k], bv, acc1);
-          }
-          __syncthreads();
-        }
-        const int64_t col = c0 + lane;
-        if (col < w) {
-          const int64_t ra = r0 + warp;
-          const int64_t rb = r0 + warp + WARPS;
-          if (ra < b)
-            l[ra * b + p0 + col] = kin[ra * ldk + p0 + col] - acc0;
-          if (rb < b)
-            l[rb * b + p0 + col] = kin[rb * ldk + p0 + col] - acc1;
-        }
-      }
-    }
-    __syncthreads();
-
-    // 2. the w-step rank-1 loop on the panel (pallas_chol.py:127-139)
-    for (int64_t c = 0; c < w; ++c) {
-      const int64_t pc = p0 + c;
-      const T d = l[pc * b + pc];
-      const T s = sqrt_t(d);
-      const T inv = T(1) / s;
-      for (int64_t i = p0 + tid; i < b; i += NT)
-        lv[i] = i > pc ? l[i * b + pc] * inv : (i == pc ? d / s : T(0));
-      for (int64_t cc = c + 1 + tid; cc < w; cc += NT)
-        uv[cc] = l[pc * b + p0 + cc];
-      __syncthreads();
-      for (int64_t i = p0 + tid; i < b; i += NT) l[i * b + pc] = lv[i];
-      for (int64_t i = pc + 1 + warp; i < b; i += WARPS) {
-        const T li = lv[i] * inv;
-        for (int64_t cc = c + 1 + lane; cc < w; cc += 32) {
-          const int64_t o = i * b + p0 + cc;
-          l[o] = fma_t(-li, uv[cc], l[o]);
-        }
-      }
-      __syncthreads();
-    }
-  }
-  // columns of the last panel above it were zeroed with it; nothing else
-  // of the upper triangle is left: every column block was zeroed above
-  // its panel's first row
-}
-
 // K4 above 128: a blocked right-looking factorization in L, the output,
 // by a host loop of launches (chol_blocked below).  L starts as the lower
 // triangle of K; then for each panel of NB columns at p, while rows are
@@ -467,9 +374,9 @@ chol_panel(const T* __restrict__ kin, int64_t ldk, T* __restrict__ l,
 // K4's time.  ops/chol_block.K4_PANEL is its copy (the workspace's side).
 constexpr int NB = 64;     // K4 above RB: the panel width
 constexpr int UT = 64;     // K4 trailing update: a CTA's tile is UT x UT
-constexpr int PB = 32;     // K4 panel solve: rows of a CTA's band
-constexpr int UKC = 16;    // K4 updates: depth of a staged chunk
-constexpr int UNT = 256;   // K4 updates: threads per CTA, 16 x 16
+constexpr int PB = 32;     // K4/K5 panel solve: rows of a CTA's band
+constexpr int UKC = 16;    // gemm_abt: depth of a staged chunk
+constexpr int UNT = 256;   // gemm_abt's kernels: threads per CTA, 16 x 16
 
 // column of a BN-wide tile that entry j of thread tx's register tile
 // holds: groups of 4 consecutive columns, 64 apart, so that 16 lanes read
@@ -573,16 +480,19 @@ chol_copy_lower(const T* __restrict__ kin, int64_t ldk, T* __restrict__ l,
   }
 }
 
-// (b): rows r0.. of the band, all NB columns of panel p.  The CTA reads
-// only its own band (and T_pp), and all of it before it writes.
-template <typename T>
+// (b): rows r0.. of the band, the pw columns of panel p (pw <= WN, the
+// compiled width; K4 runs it at NB, K5 at its panel width: the columns
+// from pw on are neither read nor written).  The CTA reads only its own
+// band (and T_pp, row stride pw), and all of it before it writes.
+template <typename T, int WN>
 __global__ void __launch_bounds__(UNT)
-chol_panel_solve(T* l, int64_t b, int64_t p, const T* __restrict__ tpp) {
-  const int64_t r0 = p + NB + static_cast<int64_t>(PB) * blockIdx.x;
+chol_panel_solve(T* l, int64_t b, int64_t p, int pw,
+                 const T* __restrict__ tpp) {
+  const int64_t r0 = p + pw + static_cast<int64_t>(PB) * blockIdx.x;
   const int rows = static_cast<int>(b - r0 < PB ? b - r0 : PB);
   T* band = l + r0 * b + p;
-  T acc[PB / 16][NB / 16] = {};
-  gemm_abt<T, PB, NB>(band, b, rows, tpp, NB, NB, NB, acc);
+  T acc[PB / 16][WN / 16] = {};
+  gemm_abt<T, PB, WN>(band, b, rows, tpp, pw, pw, pw, acc);
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
 #pragma unroll
@@ -590,8 +500,10 @@ chol_panel_solve(T* l, int64_t b, int64_t p, const T* __restrict__ tpp) {
     const int r = PB / 16 * ty + i;
     if (r < rows) {
 #pragma unroll
-      for (int j = 0; j < NB / 16; ++j)
-        band[r * b + tile_col(tx, j)] = acc[i][j];
+      for (int j = 0; j < WN / 16; ++j) {
+        const int c = tile_col(tx, j);
+        if (c < pw) band[r * b + c] = acc[i][j];
+      }
     }
   }
 }
@@ -625,6 +537,70 @@ chol_trailing(T* l, int64_t b, int64_t p) {
         T* o = l + (r0 + r) * b + c0 + c;
         *o -= acc[i][j];
       }
+    }
+  }
+}
+
+// K5: gp_tpu's left-looking factorization by panels of pw columns
+// (pallas_chol.py:112-143), in L, the output, by a host loop of launches
+// (chol_left below).  L starts as the lower triangle of K (chol_copy_lower,
+// as in K4); then for each panel at p:
+//   (1) the update L[r, p:p+pw] = K[r, p:p+pw] - L[r, :p] L[p:p+pw, :p]^T
+//       for the rows r >= p, on and below the diagonal (the leaf reads no
+//       more), in place, chol_panel_update: one CTA a band of UB rows and
+//       PU of the panel's columns, depth p; nothing at p = 0;
+//   (2) the leaf on the diagonal block, in place: L_pp and T_pp = L_pp^-1
+//       to the workspace, chol_inv_reg_alias<T, true>;
+//   (3) the panel solve L[p+pw:, p:p+pw] = C T_pp^T, in place,
+//       chol_panel_solve at the panel's width.
+// The last panel is (1) and the leaf without T's store; a block of one
+// panel is the leaf alone, on K.  The update reads only L's columns left
+// of the panel and writes only the panel's, so no CTA overwrites what
+// another reads.  It is gp_tpu's GEMM transposed, acc = L[p:p+pw, :p]
+// L[band, :p]^T: the panel's columns are gemm_abt's PU-row side, so a
+// panel of 32 columns wastes none of the tile (the other side is 64
+// wide), and a panel of 128 runs on four CTAs a band.
+//
+// Widths above RB: the leaf takes at most RB columns, so a panel width w
+// above it runs as panels of pw, the largest divisor of w up to RB.  Every
+// panel boundary of w is one of pw, so this is gp_tpu's left-looking
+// factorization with the same L in exact arithmetic; only the rounding
+// order inside a w-panel changes.
+//
+// A failing pivot makes its leaf's column and T_pp's rows from it NaN
+// (T_pp's upper triangle is stored as zeros); the panel solve keeps the
+// columns before it finite and the next panel's update carries the NaN to
+// every later column: the plain loop's mask.
+//
+// The leaves, one SM each and one after another, set the time (b / pw of
+// them); the updates' depth grows with p while their bands shrink, so the
+// late panels' updates run on few SMs.
+constexpr int UB = 64;     // K5 panel update: band rows a CTA (gemm_abt's BN)
+constexpr int PU = 32;     // K5 panel update: panel columns a CTA (its BM)
+
+// (1): band rows r0.. (blockIdx.x) and panel columns c0.. (blockIdx.y)
+template <typename T>
+__global__ void __launch_bounds__(UNT)
+chol_panel_update(T* l, int64_t b, int64_t p, int pw) {
+  const int64_t r0 = p + static_cast<int64_t>(UB) * blockIdx.x;
+  const int c0 = PU * blockIdx.y;
+  const int rows = static_cast<int>(b - r0 < UB ? b - r0 : UB);
+  const int cols = pw - c0 < PU ? pw - c0 : PU;
+  T acc[PU / 16][UB / 16] = {};
+  gemm_abt<T, PU, UB>(l + (p + c0) * b, b, cols, l + r0 * b, b, rows,
+                      static_cast<int>(p), acc);
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < PU / 16; ++i) {
+    const int c = PU / 16 * ty + i;
+    const int64_t col = p + c0 + c;
+#pragma unroll
+    for (int j = 0; j < UB / 16; ++j) {
+      const int r = tile_col(tx, j);
+      const int64_t row = r0 + r;
+      if (c < cols && r < rows && row >= col)
+        l[row * b + col] -= acc[i][j];
     }
   }
 }
@@ -721,16 +697,22 @@ cudaError_t leaf(const T* k, int64_t ldk, T* l, int64_t ldo, T* t, int64_t b,
   return cudaGetLastError();
 }
 
+// L = lower triangle of K, zeros above: K4's and K5's first launch
+template <typename T>
+cudaError_t copy_lower(const T* k, int64_t ldk, T* l, int64_t b,
+                       cudaStream_t s) {
+  const int64_t blocks = (b * b + UNT - 1) / UNT;
+  chol_copy_lower<T><<<static_cast<unsigned>(blocks < 65535 ? blocks : 65535),
+                       UNT, 0, s>>>(k, ldk, l, b);
+  return cudaGetLastError();
+}
+
 // K4 above RB, panels of NB columns (see chol_panel_solve); ws holds T_pp
 template <typename T>
 cudaError_t chol_blocked(const T* k, int64_t ldk, T* l, T* ws, int64_t b,
                          cudaStream_t s) {
   static_assert(NB <= RB && NB % 64 == 0 && NB % UKC == 0, "panel width");
-  const int64_t copy_blocks = (b * b + UNT - 1) / UNT;
-  const unsigned grid =
-      static_cast<unsigned>(copy_blocks < 65535 ? copy_blocks : 65535);
-  chol_copy_lower<T><<<grid, UNT, 0, s>>>(k, ldk, l, b);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = copy_lower(k, ldk, l, b, s);
   int64_t p = 0;
   for (; err == cudaSuccess && b - p > NB; p += NB) {
     T* d = l + p * b + p;
@@ -739,7 +721,7 @@ cudaError_t chol_blocked(const T* k, int64_t ldk, T* l, T* ws, int64_t b,
     const int64_t below = b - p - NB;
     const unsigned bands = static_cast<unsigned>((below + PB - 1) / PB);
     const unsigned tiles = static_cast<unsigned>((below + UT - 1) / UT);
-    chol_panel_solve<T><<<bands, UNT, 0, s>>>(l, b, p, ws);
+    chol_panel_solve<T, NB><<<bands, UNT, 0, s>>>(l, b, p, NB, ws);
     chol_trailing<T><<<dim3(tiles, tiles), UNT, 0, s>>>(l, b, p);
     err = cudaGetLastError();
   }
@@ -767,36 +749,72 @@ int launch_chol(const void* k, int64_t ldk, void* l, void* ws, int64_t b,
   return static_cast<int>(err);
 }
 
+// K5 at panel width pw <= RB, b > pw (see chol_panel_update); ws holds
+// T_pp (pw x pw)
 template <typename T>
-int launch_panel(const void* k, int64_t ldk, void* l, int64_t b, int64_t w,
-                 void* stream) {
+cudaError_t chol_left(const T* k, int64_t ldk, T* l, T* ws, int64_t b,
+                      int64_t pw, cudaStream_t s) {
+  static_assert(RB == 128 && NB == 64, "the panel solve's two widths");
+  cudaError_t err = copy_lower(k, ldk, l, b, s);
+  const int w = static_cast<int>(pw);
+  for (int64_t p = 0; err == cudaSuccess; p += pw) {
+    if (p > 0) {
+      const dim3 grid(static_cast<unsigned>((b - p + UB - 1) / UB),
+                      static_cast<unsigned>((pw + PU - 1) / PU));
+      chol_panel_update<T><<<grid, UNT, 0, s>>>(l, b, p, w);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) break;
+    }
+    T* d = l + p * b + p;
+    if (p + pw == b) return leaf<T, false>(d, b, d, b, nullptr, pw, s);
+    err = leaf<T, true>(d, b, d, b, ws, pw, s);
+    if (err != cudaSuccess) break;
+    const unsigned bands = static_cast<unsigned>((b - p - pw + PB - 1) / PB);
+    if (pw <= NB)
+      chol_panel_solve<T, NB><<<bands, UNT, 0, s>>>(l, b, p, w, ws);
+    else
+      chol_panel_solve<T, RB><<<bands, UNT, 0, s>>>(l, b, p, w, ws);
+    err = cudaGetLastError();
+  }
+  return err;
+}
+
+// K5: panels of w columns, or above RB of its largest divisor up to RB;
+// ws is a workspace of at least that width squared wherever b exceeds it
+template <typename T>
+int launch_panel(const void* k, int64_t ldk, void* l, void* ws, int64_t b,
+                 int64_t w, void* stream) {
   if (b <= 0) return 0;
   if (w <= 0 || b % w || ldk < b)
     return static_cast<int>(cudaErrorInvalidValue);
-  static size_t allowed = 0;
-  const size_t bytes = static_cast<size_t>(b + w) * sizeof(T);
-  const size_t total = bytes + (TM + TN) * (KC + 1) * sizeof(T);
-  if (total > static_cast<size_t>(max_smem()))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(chol_panel<T>, bytes, total, &allowed);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  chol_panel<T><<<1, NT, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(k), ldk, static_cast<T*>(l), b, w);
-  return static_cast<int>(cudaGetLastError());
+  int64_t pw = w < RB ? w : RB;
+  while (w % pw) --pw;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* pk = static_cast<const T*>(k);
+  T* pl = static_cast<T*>(l);
+  T* pws = static_cast<T*>(ws);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (pw == b)
+    err = leaf<T, false>(pk, ldk, pl, b, nullptr, b, s);
+  else if (pws != nullptr)
+    err = chol_left<T>(pk, ldk, pl, pws, b, pw, s);
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
 // k (b, b), row i at k + i * ldk (ldk >= b: a block of a larger row-major
-// matrix is read in place), symmetric (K3/K4 read its lower triangle; K5
-// also the upper entries inside each w x w diagonal square, as gp_tpu's
-// panel GEMM does).  l, t (b, b) row-major outputs, lower triangular,
-// zeros above.  w: K5's panel width, b % w == 0.  chol_inv_reg_* is K3
-// for b <= 128 (chol_inv_reg), chol_inv_* K3 for any b (chol_rank1); the
-// wrapper (ops/chol_block.py) picks by b.  chol_* is K4 for any b: one
-// launch up to 128, above it a loop of launches with panels of NB = 64
-// columns and ws an NB x NB workspace.  Each returns the cudaError_t of
-// its launches (the first that failed).
+// matrix is read in place), symmetric: each kernel reads its lower
+// triangle.  l, t (b, b) row-major outputs, lower triangular, zeros above.
+// chol_inv_reg_* is K3 for b <= 128 (chol_inv_reg), chol_inv_* K3 for any
+// b (chol_rank1); the wrapper (ops/chol_block.py) picks by b.  chol_* is K4
+// for any b: one launch up to 128, above it a loop of launches with panels
+// of NB = 64 columns and ws an NB x NB workspace.  chol_panel_* is K5 at
+// panel width w (b % w == 0): a loop of launches with panels of pw = w
+// columns, or for w > 128 of pw, the largest divisor of w up to 128 (the
+// same L in exact arithmetic), and ws a pw x pw workspace (unread where
+// pw = b: one launch).  Each returns the cudaError_t of its launches (the
+// first that failed).
 extern "C" int chol_inv_f32(const void* k, int64_t ldk, void* l, void* t,
                             int64_t b, void* stream) {
   return launch_rank1<float>(k, ldk, l, t, b, stream);
@@ -827,12 +845,12 @@ extern "C" int chol_f64(const void* k, int64_t ldk, void* l, void* ws,
   return launch_chol<double>(k, ldk, l, ws, b, stream);
 }
 
-extern "C" int chol_panel_f32(const void* k, int64_t ldk, void* l, int64_t b,
-                              int64_t w, void* stream) {
-  return launch_panel<float>(k, ldk, l, b, w, stream);
+extern "C" int chol_panel_f32(const void* k, int64_t ldk, void* l,
+                              void* ws, int64_t b, int64_t w, void* stream) {
+  return launch_panel<float>(k, ldk, l, ws, b, w, stream);
 }
 
-extern "C" int chol_panel_f64(const void* k, int64_t ldk, void* l, int64_t b,
-                              int64_t w, void* stream) {
-  return launch_panel<double>(k, ldk, l, b, w, stream);
+extern "C" int chol_panel_f64(const void* k, int64_t ldk, void* l,
+                              void* ws, int64_t b, int64_t w, void* stream) {
+  return launch_panel<double>(k, ldk, l, ws, b, w, stream);
 }

@@ -14,8 +14,14 @@ block size: up to K3_REG_MAX_B the same register kernel without T's
 store, one launch; above it a blocked right-looking factorization, a
 host loop of launches in the C entry: per panel of K4_PANEL columns the
 register leaf in place, a panel solve and a trailing update across the
-card's SMs, then the last panel's leaf.  Its workspace (the diagonal
-block's inverse) comes from torch's allocator.
+card's SMs, then the last panel's leaf.  K5 (C entry chol_panel) is
+gp_tpu's left-looking factorization, a host loop of launches in the C
+entry: per panel of w columns an update against the columns already
+factored (across the SMs), the register leaf in place, and a panel solve
+below it; a block of one panel is the leaf alone.  The leaf takes at most
+K3_REG_MAX_B columns, so a w above it runs as panels of its largest
+divisor up to K3_REG_MAX_B: the same L in exact arithmetic.  K4's and
+K5's workspace (a diagonal block's inverse) comes from torch's allocator.
 
 Dispatch is by the device of the tensor alone, as in se_tile.py.  A CUDA
 tensor launches the kernel (float32 or float64) or raises; a CPU tensor
@@ -26,12 +32,12 @@ interpret mode and chip_smoke.py holds the kernels against on the card.
 `launches[entry]` counts calls of each C entry point (K3: chol_inv_reg
 or chol_inv; K4: chol; K5: chol_panel) that launched their kernels: one
 per wrapper call on a CUDA tensor, however many kernels the entry
-launches (K4's blocked form launches 3 ceil(b / K4_PANEL) - 1), and
-nothing else.
+launches (K4's blocked form 3 ceil(b / K4_PANEL) - 1, K5 3 b / w' - 1
+at panel width w' < b), and nothing else.
 
 Failure contract, gp_tpu's: a non-positive pivot gives NaN in that column
-and every later one.  Each input is read as a symmetric matrix (K3 and K4
-read its lower triangle).
+and every later one.  Each input is read as a symmetric matrix (the
+kernels read its lower triangle).
 
 Gradients: a call that autograd records goes through a
 torch.autograd.Function whose backward is gp_tpu's Murray pullback
@@ -78,7 +84,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int64
 # (k, ldk, outputs or output and workspace, b[, w], stream)
 _ARGTYPES = {"chol_inv": [_P, _I, _P, _P, _I, _P],
              "cholesky_block": [_P, _I, _P, _P, _I, _P],
-             "cholesky_panel": [_P, _I, _P, _I, _I, _P]}
+             "cholesky_panel": [_P, _I, _P, _P, _I, _I, _P]}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -124,11 +130,15 @@ def _launch(wrapper: str, K, *extra):
     entry = k3_entry(b) if wrapper == "chol_inv" else _ENTRY[wrapper]
     fn = _kernel_fn(entry, wrapper, K.dtype)
     ptrs = [o.data_ptr() for o in outs]
-    if wrapper == "cholesky_block":
-        # K4's second buffer is the blocked form's workspace: T_pp, the
-        # diagonal block's inverse (none up to K3_REG_MAX_B)
-        ws = (torch.empty((K4_PANEL, K4_PANEL), dtype=K.dtype,
-                          device=K.device) if b > K3_REG_MAX_B else None)
+    if wrapper != "chol_inv":
+        # K4's and K5's second buffer is their panels' workspace: T_pp, a
+        # diagonal block's inverse (none where one leaf takes the block)
+        if wrapper == "cholesky_block":
+            side, one_leaf = K4_PANEL, K3_REG_MAX_B
+        else:
+            side = one_leaf = min(extra[0], K3_REG_MAX_B)
+        ws = (torch.empty((side, side), dtype=K.dtype, device=K.device)
+              if b > one_leaf else None)
         ptrs.append(None if ws is None else ws.data_ptr())
     with torch.cuda.device(K.device):
         rc = fn(K.data_ptr(), K.stride(0), *ptrs, b, *extra,
@@ -289,7 +299,11 @@ def cholesky_block(K):
 
 def cholesky_panel(K, w: int = 128):
     """K5: the lower Cholesky factor of one block by rank-w micro-panels
-    (pallas_cholesky_panel); w must divide the block size."""
+    (pallas_cholesky_panel); w must divide the block size.  On the card a
+    w above K3_REG_MAX_B runs as panels of its largest divisor up to
+    K3_REG_MAX_B (the leaf's limit): every boundary of w is one of them,
+    so L is the same in exact arithmetic and only the rounding order
+    inside a w-panel changes."""
     _check_w(_check("cholesky_panel", K), w)
     if _tracked(K):
         return _CholPanel.apply(K, int(w))

@@ -5,6 +5,7 @@
     python3 scripts/blocked_profile.py --count-ops [--n 8000]
     python3 scripts/blocked_profile.py --leaf-sweep
     python3 scripts/blocked_profile.py --k4-panel
+    python3 scripts/blocked_profile.py --k5-panel
 
 Builds the SE covariance of chip_smoke.py's data (unit sf2, lengthscales
 std sqrt(d), noise 0.1) at N rows and runs the blocked route's factor
@@ -31,8 +32,11 @@ Microseconds per launch, and per step of the b-step loop.
 
 --k4-panel times K4 (`cholesky_block`) at b = 256, 512 and 1024, in its
 blocked form (panels of 64), beside `cholesky_ex`, per dtype; then a
-b = 1024 call's device time by kernel name (torch.profiler): the leaves
-against the panel solves and trailing updates.
+b = 1024 call's device time by kernel name (torch.profiler), summed by
+part (leaves, panel solves, trailing updates), and the gaps: the call's
+CUDA-event time less its kernels' device time.
+--k5-panel does the same for K5 (`cholesky_panel`) at w = 32 and 128:
+leaves, panel updates, panel solves and gaps.
 """
 
 from __future__ import annotations
@@ -63,6 +67,7 @@ def main() -> int:
     ap.add_argument("--count-ops", action="store_true")
     ap.add_argument("--leaf-sweep", action="store_true")
     ap.add_argument("--k4-panel", action="store_true")
+    ap.add_argument("--k5-panel", action="store_true")
     args = ap.parse_args()
     import torch
     if args.count_ops:
@@ -77,10 +82,12 @@ def main() -> int:
             print(json.dumps(leaf_sweep(torch, dtype, cuda_ms, smi_line)),
                   flush=True)
         return 0
-    if args.k4_panel:
+    if args.k4_panel or args.k5_panel:
+        name, widths = (("cholesky_block", (None,)) if args.k4_panel
+                        else ("cholesky_panel", (32, 128)))
         for dtype in (torch.float32, torch.float64):
-            print(json.dumps(k4_panel(torch, dtype, cuda_ms, smi_line)),
-                  flush=True)
+            print(json.dumps(panel_profile(torch, dtype, cuda_ms, smi_line,
+                                           name, widths)), flush=True)
         return 0
     from gp_tpu_torch.ops import chol as chol_mod
     from gp_tpu_torch.ops import chol_block as cb
@@ -167,11 +174,22 @@ def leaf_sweep(torch, dtype, cuda_ms, smi_line, launches: int = 50) -> dict:
             "card": torch.cuda.get_device_name(0), "nvidia_smi": smi_line()}
 
 
-def k4_panel(torch, dtype, cuda_ms, smi_line, reps: int = 5) -> dict:
-    """K4's CUDA-event milliseconds against b, beside cholesky_ex's, and a
-    b = 1024 call's device time by kernel."""
+# the parts of a K4 or K5 call, by a piece of their kernels' names
+PARTS = {"chol_inv_reg_alias": "leaves", "chol_panel_solve": "panel solves",
+         "chol_trailing": "trailing updates",
+         "chol_panel_update": "panel updates", "chol_copy_lower": "copy"}
+
+
+def panel_profile(torch, dtype, cuda_ms, smi_line, name: str, widths,
+                  reps: int = 5) -> dict:
+    """K4's or K5's (`name`, at each panel width in `widths`, None for
+    K4) CUDA-event milliseconds against b, beside cholesky_ex's, and a
+    b = 1024 call's device time by kernel and by part, with the gaps."""
     from torch.profiler import ProfilerActivity, profile
     from gp_tpu_torch.ops import chol_block as cb
+    fn = getattr(cb, name)
+    call = lambda K, w: fn(K) if w is None else fn(K, w)
+    label = lambda w: name if w is None else f"{name} w={w}"
     ms = {}
     for b in (256, 512, 1024):
         g = torch.Generator(device="cuda").manual_seed(b)
@@ -179,27 +197,42 @@ def k4_panel(torch, dtype, cuda_ms, smi_line, reps: int = 5) -> dict:
                         device="cuda")
         K = (A @ A.T + b * torch.eye(b, dtype=torch.float64,
                                      device="cuda")).to(dtype)
-        ms[b] = {"cholesky_block": cuda_ms(torch,
-                                           lambda: cb.cholesky_block(K)),
-                 "cholesky_ex": cuda_ms(
-                     torch, lambda: torch.linalg.cholesky_ex(K))}
-    cb.cholesky_block(K)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            cb.cholesky_block(K)
+        ms[b] = {label(w): cuda_ms(torch, lambda w=w: call(K, w))
+                 for w in widths}
+        ms[b]["cholesky_ex"] = cuda_ms(
+            torch, lambda: torch.linalg.cholesky_ex(K))
+    b1024 = {}
+    for w in widths:
+        call(K, w)
         torch.cuda.synchronize()
-    by_kernel = sorted(
-        ((device_us(e) / reps, e.count // reps, e.key)
-         for e in prof.key_averages() if device_us(e) > 0
-         and (getattr(e, "device_type", None) is None
-              or "CUDA" in str(e.device_type))), reverse=True)
-    return {"dtype": str(dtype).split(".")[-1], "ms": ms,
-            "panel": cb.K4_PANEL,
-            "b1024_device_ms_by_kernel": [
-                {"kernel": k[:90], "ms": us / 1e3, "calls": c}
-                for us, c, k in by_kernel[:8]],
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call(K, w)
+            torch.cuda.synchronize()
+        by_kernel = sorted(
+            ((device_us(e) / reps, e.count // reps, e.key)
+             for e in prof.key_averages() if device_us(e) > 0
+             and (getattr(e, "device_type", None) is None
+                  or "CUDA" in str(e.device_type))), reverse=True)
+        parts = {}
+        for us, calls, key in by_kernel:
+            part = next((v for k, v in PARTS.items() if k in key), None)
+            if part is not None:
+                ms_, n = parts.get(part, (0.0, 0))
+                parts[part] = (ms_ + us / 1e3, n + calls)
+        kernels_ms = sum(v[0] for v in parts.values())
+        call_ms = ms[1024][label(w)]
+        b1024[label(w)] = {
+            "call_ms": call_ms, "kernels_ms": kernels_ms,
+            "gaps_ms": call_ms - kernels_ms,
+            "by_part": {k: {"ms": v[0], "launches": v[1]}
+                        for k, v in parts.items()},
+            "by_kernel": [{"kernel": k[:90], "ms": us / 1e3, "calls": c}
+                          for us, c, k in by_kernel[:8]]}
+    return {"dtype": str(dtype).split(".")[-1], "kernel": name, "ms": ms,
+            "panel": cb.K4_PANEL if name == "cholesky_block" else None,
+            "b1024_device": b1024,
             "card": torch.cuda.get_device_name(0), "nvidia_smi": smi_line()}
 
 

@@ -131,8 +131,13 @@ def test_chol_inv_and_block_match_plain(cuda, dtype, b):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("b,w", [(32, 32), (128, 32), (128, 128),
-                                 (256, 64)])
+                                 (256, 64), (128, 16), (200, 100),
+                                 (1024, 32), (1024, 128), (1024, 256)])
 def test_chol_panel_matches_plain(cuda, dtype, b, w):
+    """K5 at one panel (the leaf alone), at several, at a width that does
+    not fill the panel solve's compiled one (16, 100), and above the
+    leaf's 128 (256 runs as panels of 128); one count of its C entry per
+    call."""
     K = _block_spd(cuda, dtype, b, seed=1)
     chol_block.reset_launches()
     L = chol_block.cholesky_panel(K, w)
@@ -166,6 +171,28 @@ def test_chol_kernels_nan_on_indefinite(cuda, dtype, bad):
         assert bool(torch.isnan(F[bad:, bad]).all())
         assert bool(torch.isnan(F[-1, -1]))
         assert not bool(chol.chol_ok(F))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b,w,bad", [(128, 32, 0), (128, 32, 20),
+                                     (128, 32, 127), (1024, 32, 0),
+                                     (1024, 32, 200), (1024, 32, 1023),
+                                     (1024, 128, 0), (1024, 128, 200),
+                                     (1024, 128, 1023)])
+def test_cholesky_panel_nan_mask(cuda, dtype, b, w, bad):
+    """K5's NaN mask equals its plain version's: a pivot failing in the
+    first panel, inside a later one and in the last; nothing NaN above
+    the diagonal and the columns before the pivot as the plain version
+    has them."""
+    K = _block_spd(cuda, dtype, b, seed=7)
+    K[bad, bad] = -1e3
+    L = chol_block.cholesky_panel(K, w)
+    P = chol_block.cholesky_panel_plain(K, w)
+    assert torch.equal(torch.isnan(L), torch.isnan(P))
+    assert not bool(torch.triu(L, 1).any())
+    if bad:
+        assert _rel(L[:, :bad], P[:, :bad]) <= CHOL_TOL[dtype]
+    assert not bool(chol.chol_ok(L))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
