@@ -12,8 +12,9 @@ line:
   device     the card's name and `nvidia-smi` power limit (also printed
              raw, as nvidia-smi gives it)
   build      seconds to build the kernels, ptxas register/spill report;
-             no form of the register kernel (K3's, K4's and K5's leaf),
-             of K5's panel update or of the panel solve may spill
+             no form of the covariance tile (K1/K2), of the register
+             kernel (K3's, K4's and K5's leaf), of K5's panel update or of
+             the panel solve may spill
   chol_kernels  K3 (chol_inv), K4 (cholesky_block) and K5 (cholesky_panel)
              against their plain versions, float32 and float64, at
              b = 32, 128, 200 and (K4, K5) 1024, K4 also at 129, 256 and
@@ -32,13 +33,23 @@ line:
              alpha 0.7 and 50) against its plain PyTorch version, float32
              and float64, at the main path's shape (N = 8000, d = 24) and
              at ragged shapes: max abs error, the largest error over its
-             entry's rounding bound, CUDA-event times, bound
+             entry's rounding bound, K1 exactly symmetric with dvals on its
+             diagonal, a fingerprint of the build's bits, CUDA-event times
+             of wrapper calls back to back (`ms`) and replayed from a CUDA
+             graph (`device_ms`, no launch gaps), the host's enqueue of
+             one, bound, and `store_ms`, a plain fill of the same output
+             (the card's store rate)
+  kernel_big_index  K2 at 65600 x 32768 and K1 at 46400 (float32), past
+             2^31 entries: the first and last 64 rows against the plain
+             version, K1's rows against its columns
   main_path  GP(X, y).train() on CUDA float32 at N = 8000, d = 24, then
              batch_predict and both *_with_grad: NLL, evaluations, fit
              seconds, evaluations per second, held-out RMSE, launches
   breakdown  CUDA-event times of the stages of one NLL+gradient evaluation:
              the blocked route's factor and inverse, and the library's
-             cholesky_ex and cholesky_inverse beside them
+             cholesky_ex and cholesky_inverse beside them; the K1 build
+             also from a CUDA graph (k1_build_device) and the host's
+             enqueue of it (k1_build_host)
   route_sweep  one SE-ARD objective evaluation on each route at N from
              1024 to 8000, float32 and float64: host enqueue, synced wall
              and back-to-back times, the default route and the faster one
@@ -133,6 +144,48 @@ def cuda_ms(torch, fn, iters: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(torch, fn, iters: int = 10) -> float:
+    """Mean device milliseconds of fn() replayed from a CUDA graph of
+    `iters` calls: what the calls do on the card, without the host's
+    enqueue (its Python and launch overhead) or the gaps between
+    launches that cuda_ms includes."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    ms = cuda_ms(torch, graph.replay, iters=5, warm=1) / iters
+    del graph
+    return ms
+
+
+def fingerprint(torch, K) -> str:
+    """A hash of K's bits: equal builds give equal strings."""
+    bits = K.contiguous().view(torch.int32 if K.dtype == torch.float32
+                               else torch.int64).to(torch.int64)
+    weights = torch.arange(1, bits.numel() + 1, device=K.device,
+                           dtype=torch.int64) % 65521
+    return f"{int((bits.flatten() * weights).sum()) & (2**64 - 1):016x}"
+
+
+def host_ms(torch, fn, reps: int = 20) -> float:
+    """Mean host milliseconds to enqueue fn() (no synchronize between
+    calls)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
 def eval_clock(torch, fn, reps: int = 10) -> dict:
     """Median host milliseconds to enqueue fn() and median wall
     milliseconds to its end (a synchronize after each call, as a fit
@@ -215,7 +268,7 @@ def phase_device(torch) -> dict:
 
 # kernels that may not spill, and their number of compiled forms
 NO_SPILL = {"chol_inv_reg": 6, "chol_panel_update": 2,
-            "chol_panel_solve": 4}
+            "chol_panel_solve": 4, "se_tile": 32}
 
 
 def phase_build() -> None:
@@ -235,7 +288,8 @@ def phase_build() -> None:
     # memory.  The register kernel: K3's chol_inv_reg<T> and the leaf of K4
     # and K5, chol_inv_reg_alias<T, STORE_T> (T stored or not); K5's panel
     # update; the panel solve at its two widths (K4's 64, and 128); each
-    # in f32 and f64
+    # in f32 and f64.  K1/K2's se_tile<T, FORM, SYM, VEC>: 2 types x 4
+    # forms x K1 or K2 x vector or scalar stores
     for kernel, forms in NO_SPILL.items():
         lines = [ln for ln in report if kernel in ln and "spill" in ln]
         spilled = [ln for ln in lines if any(int(n) for n in re.findall(
@@ -261,6 +315,10 @@ def phase_kernels(torch, X) -> dict:
              ("ragged", 333, 4097, 130)]
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split(".")[-1]
+        # the card's achievable store rate at the main shape: the bytes
+        # of K1/K2's output written by a plain fill
+        store_ms = cuda_ms(torch, lambda: torch.empty(
+            N_TRAIN, N_TRAIN, dtype=dtype, device=dev).fill_(1.0))
         for label, m, n, d in cases:
             if label == "main":
                 x1 = torch.as_tensor(X, dtype=dtype, device=dev)
@@ -303,6 +361,9 @@ def phase_kernels(torch, X) -> dict:
                     if sym:
                         check(bool(torch.equal(out.diagonal(), dvals)),
                               f"{name} {dname}: diagonal is not dvals")
+                        check(bool(torch.equal(out, out.T)),
+                              f"{name} {dname} {m}x{n}x{d} p1={alpha}: not "
+                              f"exactly symmetric")
                     rec = {"kernel": name, "form": form, "p1": alpha,
                            "dtype": dname, "m": rows[0], "n": rows[1],
                            "d": d, "max_abs_err": float(err.max()),
@@ -314,14 +375,64 @@ def phase_kernels(torch, X) -> dict:
                     if label == "main":
                         bound_ms, by = se_bound_ms(rows[0], rows[1], d,
                                                    dname, sym, form)
-                        rec.update(ms=cuda_ms(torch, kern),
+                        # `ms` back to back, as every earlier PR timed
+                        # it; `device_ms` leaves out the launch gaps and
+                        # the wrapper's first enqueue
+                        rec.update(bits=fingerprint(torch, out),
+                                   ms=cuda_ms(torch, kern),
+                                   device_ms=graph_ms(torch, kern),
+                                   host_enqueue_ms=host_ms(torch, kern),
                                    plain_ms=cuda_ms(torch, plain, iters=5),
-                                   bound_ms=bound_ms, bound_by=by)
+                                   bound_ms=bound_ms, bound_by=by,
+                                   store_ms=store_ms)
                         timed[(name, dname, alpha)] = rec
                     emit("kernel", **rec)
                     del out, ref
                 torch.cuda.empty_cache()
     return timed
+
+
+# K2 at 65600 x 32768 and K1 at 46400 x 46400: both pass 2^31 entries
+BIG_INDEX = (("se_tile", 65600, 32768), ("se_tile_diag", 46400, 46400))
+
+
+def phase_big_index(torch) -> None:
+    """K2 and K1 (se, float32, d = 24) past 2^31 entries, where a 32-bit
+    offset would wrap: the first and last 64 rows against the plain
+    version of those rows (K1's with dvals on the diagonal), each entry
+    within its rounding bound; K1's rows equal to its columns there."""
+    from gp_tpu_torch.ops import se_tile
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 1)
+    sf2 = torch.tensor(1.3, dtype=torch.float32, device=dev)
+    inv_l = ((torch.rand(DIM, generator=gen) + 0.5) / math.sqrt(DIM)).to(dev)
+    for name, m, n in BIG_INDEX:
+        sym = m == n
+        x1 = torch.randn(m, DIM, generator=gen).to(dev)
+        x2 = x1 if sym else torch.randn(n, DIM, generator=gen).to(dev)
+        dvals = torch.full((m,), 1.31, device=dev)
+        check(m * n > 2**31, f"{name} {m}x{n} does not pass 2^31 entries")
+        out = se_tile.se_matrix_diag(inv_l, sf2, x1, dvals) if sym \
+            else se_tile.se_matrix(inv_l, sf2, x1, x2)
+        torch.cuda.synchronize()
+        ratios = []
+        for rows in (torch.arange(64, device=dev),
+                     torch.arange(m - 64, m, device=dev)):
+            ref = se_tile.se_matrix_plain(inv_l, sf2, x1[rows], x2)
+            if sym:
+                ref[torch.arange(64, device=dev), rows] = dvals[rows]
+                check(bool(torch.equal(out[rows], out[:, rows].T)),
+                      f"{name} {m}x{n}: rows {int(rows[0])}.. are not its "
+                      f"columns")
+            bound = se_tile.rounding_bound(inv_l, sf2, x1[rows], x2, ref)
+            ratios.append(float(((out[rows] - ref).abs() / bound).max()))
+        check(all(math.isfinite(r) and r <= 1.0 for r in ratios),
+              f"{name} {m}x{n}: first/last 64 rows off by {ratios} times "
+              f"their rounding bound")
+        emit("kernel_big_index", kernel=name, m=m, n=n, d=DIM,
+             dtype="float32", entries=m * n, max_err_over_bound=ratios)
+        del out, x1, x2
+        torch.cuda.empty_cache()
 
 
 # K3-K5 against their plain versions: the error relative to max |L| (and
@@ -784,6 +895,10 @@ def phase_breakdown(torch, gp, phase: str = "breakdown") -> None:
             K_build, leaves, Q, retain_graph=True)
     stages["objective_total"] = lambda: objective_vg(kern, False, vec, x, y)
     ms = {k: cuda_ms(torch, f, iters=5, warm=1) for k, f in stages.items()}
+    # the build's device time without launch gaps, and the host's enqueue
+    # of the k_noise call (its torch ops and the launch) beside it
+    ms["k1_build_device"] = graph_ms(torch, stages["k1_build"])
+    ms["k1_build_host"] = host_ms(torch, stages["k1_build"])
     ms["route_blocked_total"] = (ms["route_blocked_factor"]
                                  + ms["route_blocked_inverse"])
     ms["library_total"] = (ms["library_cholesky_ex"]
@@ -1080,6 +1195,7 @@ def main() -> int:
         Xtr, ytr, Xte, yte = X[:N_TRAIN], y[:N_TRAIN], X[N_TRAIN:], \
             y[N_TRAIN:]
         timed = phase_kernels(torch, Xtr)
+        phase_big_index(torch)
         chol_timed = phase_chol_kernels(torch)
         blocked_launches = phase_blocked(torch, Xtr)
         paths = {"se_ard": phase_main_path(torch, Xtr, ytr, Xte, yte)}
@@ -1118,8 +1234,12 @@ def main() -> int:
                     "replaces": f"gp_tpu/ops/pallas_kernels.py:{line}",
                     "launches": launches,
                     "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                    "device_ms": rec["device_ms"],
                     "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                     "bound_by": rec["bound_by"],
+                    # a plain fill of the same output: the card's store
+                    # rate, not a library time (it does not compute K)
+                    "store_ms": rec["store_ms"],
                     # no single PyTorch call computes a covariance matrix
                     "library_ms": None, "form": form, "p1": rec["p1"],
                     "main_path": kernel,

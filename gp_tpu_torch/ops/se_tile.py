@@ -56,8 +56,11 @@ def reset_launches() -> None:
 
 
 _FN = {torch.float32: "se_tile_f32", torch.float64: "se_tile_f64"}
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3 + [
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 5 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# the kernel reads the rows feature-major, each feature's row 16-byte
+# aligned: the row length padded to a multiple of _ALIGN values
+_ALIGN = 4
 
 # Matern's a (rounded to the data's type where it multiplies a tensor)
 # and the floor under sqrt that keeps the r = 0 gradient finite
@@ -81,13 +84,26 @@ def _kernel_fn(dtype):
     return fn
 
 
-def _launch(wrapper: str, form: str, a, b, sf2, p1, dvals):
-    """One launch of se_tile on pre-scaled rows a (m, d), b (n, d)."""
+def _feature_major(x, inv_l):
+    """The rows x (m, d) scaled by inv_l, as the kernel reads them: (d, m
+    padded to _ALIGN); the kernel reads no column past m.  Built without
+    grad (out= refuses inputs that require it): the kernel is no autograd
+    op, its Functions below carry the gradient."""
+    m, d = x.shape
+    t = x.new_empty((d, -(-m // _ALIGN) * _ALIGN))
+    with torch.no_grad():
+        torch.mul(x.T, inv_l.reshape(-1, 1), out=t[:, :m])
+    return t
+
+
+def _launch(wrapper: str, form: str, a, b, inv_l, sf2, p1, dvals):
+    """One launch of se_tile on the rows a (m, d), b (n, d) scaled by
+    inv_l (K1: b is a)."""
     dev = a.device
     if a.dtype not in _FN:
         raise TypeError(f"{wrapper}: the CUDA kernel takes float32 or "
                         f"float64, not {a.dtype}")
-    operands = [b, sf2] + [t for t in (p1, dvals) if t is not None]
+    operands = [b, inv_l, sf2] + [t for t in (p1, dvals) if t is not None]
     for t in operands:
         if t.device != dev or t.dtype != a.dtype:
             raise ValueError(f"{wrapper}: operands must share device and "
@@ -102,18 +118,20 @@ def _launch(wrapper: str, form: str, a, b, sf2, p1, dvals):
     n = b.shape[0]
     if dvals is not None and tuple(dvals.shape) != (m,):
         raise ValueError(f"{wrapper}: dvals must be ({m},)")
-    a, b, sf2 = a.contiguous(), b.contiguous(), sf2.contiguous()
-    p1 = p1.contiguous() if p1 is not None else None
-    dvals = dvals.contiguous() if dvals is not None else None
     out = torch.empty((m, n), dtype=a.dtype, device=dev)
     if m == 0 or n == 0:
         return out
+    at = _feature_major(a, inv_l)
+    bt = at if b is a else _feature_major(b, inv_l)
+    sf2 = sf2.contiguous()
+    p1 = p1.contiguous() if p1 is not None else None
+    dvals = dvals.contiguous() if dvals is not None else None
     fn = _kernel_fn(a.dtype)
     ptr = lambda t: t.data_ptr() if t is not None else None
     with torch.cuda.device(dev):
-        rc = fn(a.data_ptr(), b.data_ptr(), sf2.data_ptr(), ptr(p1),
-                ptr(dvals), out.data_ptr(), m, n, d, FORMS.index(form),
-                int(dvals is not None),
+        rc = fn(at.data_ptr(), bt.data_ptr(), sf2.data_ptr(), ptr(p1),
+                ptr(dvals), out.data_ptr(), m, n, d, at.shape[1],
+                bt.shape[1], FORMS.index(form), int(dvals is not None),
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{wrapper}: se_tile ({form}) launch failed with "
@@ -224,8 +242,7 @@ def se_matrix(inv_l, sf2, x1, x2, form: str = "se", p1=1.0):
     _check_form(form)
     if x1.device.type == "cpu":
         return se_matrix_plain(inv_l, sf2, x1, x2, form, p1)
-    inv_l = _scalar(inv_l, x1)
-    return _launch("se_matrix", form, x1 * inv_l, x2 * inv_l,
+    return _launch("se_matrix", form, x1, x2, _scalar(inv_l, x1),
                    _scalar(sf2, x1), _scalar(p1, x1) if form == "rq"
                    else None, None)
 
@@ -236,9 +253,8 @@ def se_matrix_diag(inv_l, sf2, x, dvals, form: str = "se", p1=1.0):
     _check_form(form)
     if x.device.type == "cpu":
         return se_matrix_diag_plain(inv_l, sf2, x, dvals, form, p1)
-    xs = x * _scalar(inv_l, x)
-    return _launch("se_matrix_diag", form, xs, xs, _scalar(sf2, x),
-                   _scalar(p1, x) if form == "rq" else None,
+    return _launch("se_matrix_diag", form, x, x, _scalar(inv_l, x),
+                   _scalar(sf2, x), _scalar(p1, x) if form == "rq" else None,
                    _scalar(dvals, x))
 
 

@@ -17,7 +17,11 @@ from gp_tpu_torch.ops import chol, chol_block, se_tile
 
 pytestmark = pytest.mark.cuda
 
-SHAPES = [(1000, 777, 3), (333, 4097, 130), (64, 64, 24), (1, 65, 1)]
+# ragged and misaligned shapes (the scalar-store form), the tile edges
+# (128 in float32, 64 in float64) at the main path's d = 24, and an even
+# shape cut inside a tile (float64's 16-byte stores at a ragged edge)
+SHAPES = [(1000, 777, 3), (333, 4097, 130), (64, 64, 24), (1, 65, 1),
+          (128, 128, 24), (129, 255, 24), (256, 256, 24), (130, 194, 24)]
 
 
 @pytest.fixture
@@ -53,11 +57,14 @@ def _check_form(form, p1, x1, x2, inv_l, sf2, xs, dvals):
         inv_l, sf2, x1, x2, P, form, p1)).all())
     assert bool(((K1 - P1).abs() <= se_tile.rounding_bound(
         inv_l, sf2, xs, xs, P1, form, p1)).all())
+    # K1 computes each symmetric pair once: exactly symmetric, with dvals
+    # exactly on its diagonal
     assert torch.equal(K1.diagonal(), dvals)
+    assert torch.equal(K1, K1.T)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("m,n,d", SHAPES)
+@pytest.mark.parametrize("m,n,d", SHAPES + [(8000, 8000, 24)])
 def test_kernel_matches_plain(cuda, dtype, m, n, d):
     _check_form("se", 1.0, *_inputs(cuda, dtype, m, n, d))
 
@@ -71,6 +78,18 @@ def test_kernel_form_matches_plain(cuda, form, p1, dtype, m, n, d):
     x2[:min(m, n)] = x1[:min(m, n)]        # coincident pairs: r = 0 in K2
     alpha = torch.tensor(p1, dtype=dtype, device=cuda)
     _check_form(form, alpha, x1, x2, inv_l, sf2, xs, dvals)
+
+
+def test_kernel_takes_inputs_that_require_grad(cuda):
+    x1, x2, inv_l, sf2, xs, dvals = _inputs(cuda, torch.float32, 70, 66, 5)
+    x1.requires_grad_(True)
+    inv_l.requires_grad_(True)
+    K = se_tile.se_matrix(inv_l, sf2, x1, x2)
+    K1 = se_tile.se_matrix_diag(inv_l, sf2, x1, dvals[:1].expand(70))
+    with torch.no_grad():
+        assert torch.equal(K, se_tile.se_matrix(inv_l, sf2, x1, x2))
+        assert torch.equal(K1, se_tile.se_matrix_diag(
+            inv_l, sf2, x1, dvals[:1].expand(70)))
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
