@@ -69,6 +69,30 @@ line:
   blocked_vs_library  the f64 objective (value and gradient) through the
              blocked route against the library route at N = 8000, SE-ARD
              and Matern-5/2
+  global_search  select_init_hyp (the MVMO search, num_hyp * 50
+             candidates from the defaults) on the SE-ARD f32 problem:
+             candidates, seconds, candidates per second, best f and f at
+             the defaults, K1 launches (one per candidate) and K3 launches
+             (64 per candidate), exactly; the fit from the best point
+             (RMSE below 0.6 of the constant predictor's); then GP.train
+             from an INF start (length scales at -200), which must enter
+             the search, end finite, end no higher than the search's best
+             point, and predict no worse than the constant predictor (its
+             own K1/K3 counts beside the search's)
+  multistart train_multistart(n_starts=4): seconds, evaluations, each
+             start's f; the best NLL at most the main path's + 1e-3 |NLL|
+  sparse_fitc, sparse_vfe  FITC and VFE (float64 by default) with the last
+             512 training rows as inducing points: fit NLL, evaluations,
+             status, seconds, evaluations per second, one evaluation's
+             clock, set_k's jitter, RMSE, prediction seconds, K2 launches
+             per evaluation (Kuu, Kxu) and no K1 or K3, the envelope's
+             budget, K2 f64 at (8000, 512) and (512, 512) x 24 against its
+             plain version with times and bound; the CPU port's value and
+             NLL at the fitted hyps, and value, gradient and NLL with the
+             noise raised (parity_hyps), within 1e-8, and the gradient at
+             the fitted hyps within FITTED_GRAD_LIMIT; then fd_check_fitc /
+             fd_check_vfe, the input gradients against central differences
+             (VFE's at FITC's fitted hyps)
 
 Each main path runs with the launch counts set to 0 just before it and
 read just after; it must have gone through its own form of K1 and K2 and
@@ -1174,6 +1198,350 @@ def phase_blocked_vs_library(torch, gp64, paths, Xtr, ytr) -> None:
     check(worst <= 1e-9, f"blocked vs library objective beyond 1e-9: {res}")
 
 
+class stamped:
+    """Records the host clock at each call of module.name (a function the
+    fit looks up at call time) inside the block."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.stamps = []
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def wrapped(*a, **kw):
+            self.stamps.append(time.perf_counter())
+            return self.orig(*a, **kw)
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def phase_global_search(torch, Xtr, ytr, Xte, yte) -> dict:
+    """The MVMO global search (select_init_hyp) on the card, SE-ARD f32 at
+    N = 8000, d = 24, num = num_hyp * 50 candidates from the defaults,
+    each chunk of candidates one by one on the blocked route: one K1 build
+    and one blocked factor (64 K3 leaves) per candidate, counted exactly.
+    The fit from the search's best point must beat 0.6 of the constant
+    predictor's held-out RMSE.  Then GP.train from gp_tpu's INF start
+    (tests/test_mvmo.py:63-65, every length scale at -200: 1/l overflows
+    float32), with the launch counts set to 0 again: it must enter the
+    search, end finite and no higher than the search's best point (+ 1e-3
+    |NLL|), and predict no worse than the constant predictor (+ 1e-3).
+    0.6 of the constant's RMSE is not asked of it: from that start no
+    archive point is better than the white-noise optimum's plateau, whose
+    near-ties rounding orders, and gp_tpu's own search and train() end on
+    the plateau there too (scripts/search_parity.py, PERF.md §6)."""
+    import numpy as np
+    from gp_tpu_torch import GP
+    from gp_tpu_torch.ops import chol_block, se_tile
+    from gp_tpu_torch.optim.lbfgsb import explain_result
+    from gp_tpu_torch.optim.multistart import mvmo_evaluations
+
+    gp = GP(Xtr, ytr)
+    defaults = gp.get_default_hyps()
+    num, chunk = gp.num_hyp * 50, gp._multistart_chunk()
+    cands = mvmo_evaluations(num, chunk)
+    log_sigma_n = N_TRAIN * math.log(gp._y_sigma)   # std -> original NLL
+    f_def = float(gp._multistart_objective()(
+        gp._tensor(gp._hyp_to_std(defaults))[None])[0])
+    se_tile.reset_launches()
+    chol_block.reset_launches()
+    t0 = time.perf_counter()
+    hyps = gp.select_init_hyp(num, defaults)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    k1_search = se_tile.launches["se_matrix_diag"]["se"]
+    chol_search = dict(chol_block.launches)
+    best_f, evaluated = gp.last_search
+    check(evaluated == cands, f"search reports {evaluated} evaluations, "
+          f"expected {cands}")
+    check(k1_search == cands, f"search: K1 launched {k1_search} times for "
+          f"{cands} candidates")
+    check(chol_search["chol_inv_reg"] == LEAVES_PER_FACTOR * cands
+          and sum(chol_search.values()) == chol_search["chol_inv_reg"],
+          f"search: chol_block launches {chol_search} for {cands} "
+          f"candidates of {LEAVES_PER_FACTOR} leaves")
+    check(math.isfinite(best_f) and best_f <= f_def,
+          f"search best f {best_f} not finite or above the defaults' {f_def}")
+    # the fit from the search's best point: what the search is for
+    g1 = GP(Xtr, ytr)
+    nll_best = g1.train(hyps)
+    mu, _ = g1.batch_predict(Xte)
+    rmse_best = _rmse(mu.cpu().numpy(), yte)
+    rmse_const = _rmse(np.full_like(yte, ytr.mean()), yte)
+    emit("global_search", n=N_TRAIN, d=DIM, dtype="float32", num=num,
+         chunk=chunk, candidates=cands, seconds=search_s,
+         candidates_per_s=cands / search_s, best_f_std=best_f,
+         f_defaults_std=f_def, best_nll=best_f + log_sigma_n,
+         nll_defaults=f_def + log_sigma_n, k1_launches=k1_search,
+         chol_launches=chol_search, best_hyp=hyps.tolist(),
+         fit_from_best={"nll": nll_best,
+                        "evals": int(g1.last_opt_result.evals),
+                        "status": explain_result(g1.last_opt_result),
+                        "rmse": rmse_best, "rmse_const": rmse_const})
+    check(math.isfinite(nll_best) and rmse_best < 0.6 * rmse_const,
+          f"fit from the search's best: NLL {nll_best}, held-out RMSE "
+          f"{rmse_best} not below 0.6 of the constant predictor's "
+          f"{rmse_const}")
+    del g1
+
+    bad = defaults.copy()
+    bad[:DIM] = -200.0
+    g2 = GP(Xtr, ytr)
+    check(g2.nll(bad) == math.inf, "the start with length scales at -200 "
+          "is not INF in float32")
+    se_tile.reset_launches()
+    chol_block.reset_launches()
+    t0 = time.perf_counter()
+    nll = g2.train(bad)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    check(g2.last_search is not None, "train(bad) did not enter the search")
+    check(math.isfinite(nll), "train(bad): final NLL not finite")
+    mu, _ = g2.batch_predict(Xte)
+    torch.cuda.synchronize()
+    launches = _launched(se_tile)
+    chol_launches = dict(chol_block.launches)
+    rmse = _rmse(mu.cpu().numpy(), yte)
+    search_nll = g2.last_search[0] + log_sigma_n
+    emit("global_search_train_from_inf", nll=nll, seconds=train_s,
+         search_best_f_std=g2.last_search[0], search_best_nll=search_nll,
+         evals=int(g2.last_opt_result.evals),
+         status=explain_result(g2.last_opt_result), rmse=rmse,
+         rmse_const=rmse_const, hyp=g2.get_hyp().tolist(),
+         launches=launches, chol_launches=chol_launches)
+    check(nll <= search_nll + 1e-3 * abs(search_nll), f"train(bad): NLL "
+          f"{nll} above the search's best point's {search_nll}")
+    check(rmse <= (1 + 1e-3) * rmse_const, f"train(bad): held-out RMSE "
+          f"{rmse} worse than the constant predictor's {rmse_const}")
+    return {"search": {"k1": k1_search, "k3": chol_search["chol_inv_reg"]},
+            "train_from_inf": {"k1": launches["se_matrix_diag"]["se"],
+                               "k3": chol_launches["chol_inv_reg"]}}
+
+
+def phase_multistart(torch, Xtr, ytr, main) -> dict:
+    """GP(X, y).train_multistart(n_starts=4) on the card (SE-ARD f32):
+    start 0 is the clipped default start that train() takes, so the best
+    NLL must be at most the main path's + 1e-3 |NLL|."""
+    from gp_tpu_torch import GP
+    from gp_tpu_torch.ops import chol_block, se_tile
+
+    se_tile.reset_launches()
+    chol_block.reset_launches()
+    t0 = time.perf_counter()
+    gp = GP(Xtr, ytr)
+    nll = gp.train_multistart(n_starts=4)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _launched(se_tile)
+    chol_launches = dict(chol_block.launches)
+    res = gp.last_multistart
+    log_sigma_n = N_TRAIN * math.log(gp._y_sigma)
+    all_nll = [float(f) + log_sigma_n for f in res.all_f.double().cpu()]
+    main_res = main["gp"].last_opt_result
+    limit = main["nll"] + 1e-3 * abs(main["nll"])
+    emit("multistart", n=N_TRAIN, d=DIM, dtype="float32", n_starts=4,
+         seconds=secs, evals=res.evals, total_evals=sum(res.evals),
+         evals_per_s=sum(res.evals) / secs, start_nll_opt=all_nll,
+         best_start=int(torch.argmin(res.all_f)), nll=nll,
+         main_path_nll=main["nll"], start0_end_equals_main_path_end=bool(
+             torch.equal(res.all_x[0], main_res.x)),
+         start0_evals_main_path_evals=[res.evals[0], int(main_res.evals)],
+         limit=limit,
+         launches=launches, chol_launches=chol_launches)
+    check(math.isfinite(nll) and nll <= limit,
+          f"multistart NLL {nll} above the single start's {main['nll']} + "
+          f"1e-3 |NLL|")
+    check(launches["se_matrix_diag"]["se"] >= sum(res.evals),
+          f"multistart: K1 launched {launches} for {sum(res.evals)} "
+          f"evaluations")
+    return {"launches": launches, "chol_launches": chol_launches}
+
+
+N_INDUCING = 512
+
+
+def _k2_f64_record(torch, se_tile, x1, x2, inv_l, sf2) -> dict:
+    """K2 at (x1, x2) in float64 against its plain version (each entry
+    within its rounding bound), times back to back and from a CUDA graph,
+    the plain version's and the bound."""
+    m, n, d = x1.shape[0], x2.shape[0], x1.shape[1]
+    kern = lambda: se_tile.se_matrix(inv_l, sf2, x1, x2)
+    plain = lambda: se_tile.se_matrix_plain(inv_l, sf2, x1, x2)
+    out, ref = kern(), plain()
+    bound = se_tile.rounding_bound(inv_l, sf2, x1, x2, ref)
+    err = (out - ref).abs()
+    # an exact entry is within any bound, 0 included (at a tiny sf2 the
+    # bound's sf2 * tiny term underflows to 0)
+    ratio = float(torch.where(err == 0, 0.0, err / bound).max())
+    check(math.isfinite(ratio) and ratio <= 1.0,
+          f"se_tile f64 {m}x{n}x{d}: off by {ratio} times its rounding bound")
+    bound_ms, by = se_bound_ms(m, n, d, "float64", False)
+    return {"m": m, "n": n, "d": d, "max_abs_err": float(err.max()),
+            "max_err_over_bound": ratio, "ms": cuda_ms(torch, kern),
+            "device_ms": graph_ms(torch, kern),
+            "plain_ms": cuda_ms(torch, plain, iters=5),
+            "bound_ms": bound_ms, "bound_by": by}
+
+
+# Card-against-CPU gradient limits at each sparse model's fitted hyps, set
+# from scripts/sparse_sensitivity.py on the card at this path's N = 8000,
+# M = 512 (PERF.md §6): K2's entries moved by 2e-16 move FITC's gradient
+# there by up to 1.7e-5 of its largest entry, so the gap is held to ten
+# times that.  VFE's fit ends at its noise-only optimum (sf2 ~ 1e-30): K2
+# is ~0 and moving it moves nothing, and the gradient is ~0 (largest entry
+# 1.6e-11), so a gap relative to it is rounding over nothing (0.07 read on
+# the card, 1.1e-12 absolute): there the gap is held relative to |f|, to
+# 1e-12, a hundred times the f64 rounding (1e-16 |f|) of the O(N) terms
+# that cancel in it.
+FITTED_GRAD_LIMIT = {"FITC": ("grad", 2e-4), "VFE": ("grad_over_f", 1e-12)}
+
+
+def phase_sparse(torch, Xtr, ytr, Xte, yte, model: str,
+                 fd_hyps=None) -> dict:
+    """FITC or VFE on the card, float64 by default, N = 8000, d = 24, the
+    last 512 training rows as inducing points (gp_tpu's CLI): train(),
+    predictions, one objective evaluation's clock, K2 (Kuu, Kxu, K(X*, U))
+    launches and no K1 or K3, K2 f64 at the path's shapes against its
+    plain version; the CPU port's value and NLL within 1e-8 and gradient
+    within FITTED_GRAD_LIMIT at the fitted hyps, all three within 1e-8 with
+    the noise raised; input gradients against central differences, at the
+    fitted hyps or at fd_hyps.  The RMSE is printed, not checked: from the
+    defaults VFE may end at its noise-only optimum (the constant
+    predictor), as gp_tpu's VFE does; there K(X*, U) underflows and the
+    input gradients are zero to rounding, so main() checks VFE's input
+    gradients, and times its K2, at FITC's fitted hyps (fd_hyps), an
+    informative posterior."""
+    import numpy as np
+    import gp_tpu_torch
+    from gp_tpu_torch.models import sparse
+    from gp_tpu_torch.ops import chol_block, se_tile
+    from gp_tpu_torch.optim.lbfgsb import explain_result
+    from gp_tpu_torch.utils.convert import gp_from_state
+
+    phase = f"sparse_{model.lower()}"
+    se_tile.reset_launches()
+    chol_block.reset_launches()
+    with stamped(sparse, "value_and_grad") as st:
+        t0 = time.perf_counter()
+        m = getattr(gp_tpu_torch, model)(Xtr, ytr)
+        check(m.device.type == "cuda" and m.dtype == torch.float64,
+              f"{model}(X, y) must default to CUDA float64")
+        m.set_inducing(Xtr[-N_INDUCING:])
+        nll = m.train()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    evals = int(m.last_opt_result.evals)
+    check(len(st.stamps) == evals, f"{model}: {len(st.stamps)} objective "
+          f"calls for {evals} evaluations")
+    train_launches = _launched(se_tile)
+    t2 = time.perf_counter()
+    mu, _ = m.batch_predict(Xte)
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t2
+    launches = _launched(se_tile)
+    chol_launches = dict(chol_block.launches)
+    k2 = train_launches["se_matrix"]["se"]
+    check(k2 >= 2 * evals, f"{model}: K2 launched {k2} times for {evals} "
+          f"evaluations")
+    check(sum(launches["se_matrix_diag"].values()) == 0
+          and sum(v for f, v in launches["se_matrix"].items() if f != "se")
+          == 0 and sum(chol_launches.values()) == 0,
+          f"{model}: K1, K3-K5 or another form on the path: {launches}, "
+          f"{chol_launches}")
+    check(math.isfinite(nll), f"{model}: final NLL not finite")
+    rmse = _rmse(mu.cpu().numpy(), yte)
+    rmse_const = _rmse(np.full_like(yte, ytr.mean()), yte)
+
+    # one evaluation at the fitted hyps: its K2 launches by form, its clock
+    fun = m._objective_closure()
+    vec = m._tensor(m._hyp_to_std(m.get_hyp()))
+    se_tile.reset_launches()
+    f_card, g_card = fun(vec)
+    torch.cuda.synchronize()
+    per_eval = _launched(se_tile)
+    check(per_eval["se_matrix"]["se"] == 2
+          and sum(per_eval["se_matrix_diag"].values()) == 0,
+          f"{model}: one evaluation launched {per_eval}, expected K2 twice "
+          f"(Kuu, Kxu)")
+    clock = eval_clock(torch, lambda: fun(vec))
+
+    # the hyps of the checks below: the fitted ones, or fd_hyps (at VFE's
+    # noise-only optimum sf2 ~ 1e-30: K(X*, U) underflows, the rounding
+    # bound's sf2 * tiny too, and the gradient is ~0 at convergence, so
+    # its card-vs-CPU gap reads 0.07 of its largest entry, 1.1e-12
+    # absolute, 1.0e-16 of |f|: FITTED_GRAD_LIMIT holds it on |f|)
+    probe_hyps = m.get_hyp() if fd_hyps is None else fd_hyps
+
+    # the CPU port against the card, float64, at the fitted hyps and at the
+    # probe hyps with the noise raised to 0.1 std(y) (parity_hyps, as
+    # cpu_parity does for the exact GP).  The value and NLL are held to
+    # 1e-8 at both points, the gradient to 1e-8 at the raised noise and to
+    # FITTED_GRAD_LIMIT at the fitted hyps, where the objective amplifies
+    # the kernels' last-bit rounding (scripts/sparse_sensitivity.py)
+    parity = {}
+    for label, h in (("fitted", m.get_hyp()),
+                     ("noise_raised", parity_hyps(probe_hyps, "se_ard",
+                                                  ytr))):
+        state = {"model": model, "x": Xtr, "y": ytr, "hyps": h,
+                 "dtype": "float64", "inducing": Xtr[-N_INDUCING:],
+                 "jitter_u": m._jitter_u}
+        pair = [gp_from_state(state, device=d) for d in ("cuda", "cpu")]
+        (fc, gc), (fh, gh) = (p._objective_closure()(
+            p._tensor(p._hyp_to_std(h))) for p in pair)
+        nc, nh = pair[0].nll(), pair[1].nll()
+        gap = float((gc.cpu() - gh).abs().max())
+        parity[label] = {
+            "value": abs(float(fc) - float(fh)) / abs(float(fh)),
+            "grad": gap / float(gh.abs().max()),
+            "grad_over_f": gap / abs(float(fh)), "nll": abs(nc - nh) / abs(nh)}
+        del pair
+    # K2 in float64 at the path's shapes, at the length scales of the fd
+    # check
+    chyp = m._tensor(probe_hyps)[:DIM + 1]
+    inv_l, sf2 = torch.exp(-chyp[:DIM]), torch.exp(2.0 * chyp[DIM])
+    u = m.inducing
+    k2_rec = {"kxu": _k2_f64_record(torch, se_tile, m.train_in, u, inv_l,
+                                    sf2),
+              "kuu": _k2_f64_record(torch, se_tile, u, u, inv_l, sf2)}
+    gaps = np.diff(st.stamps)
+    emit(phase, model=model, n=N_TRAIN, m=N_INDUCING, d=DIM,
+         dtype="float64", nll=nll, evals=evals,
+         status=explain_result(m.last_opt_result, m._MAX_EVAL),
+         fit_s=t1 - t0,
+         evals_per_s_from_second=(len(st.stamps) - 1) / (t1 - st.stamps[1]),
+         gap_ms_median=float(np.median(gaps) * 1e3),
+         objective_clock_ms=clock, jitter_u=m._jitter_u, rmse=rmse,
+         rmse_const=rmse_const, predict_1000_s=pred_s,
+         k2_launches_train=k2, k2_launches_per_eval=per_eval["se_matrix"],
+         launches=launches, chol_launches=chol_launches,
+         envelope_budget_bytes=sparse.hbm_budget_bytes(m.device),
+         envelope_estimate_bytes=sparse.SPARSE_PANEL_FACTOR * N_TRAIN
+         * N_INDUCING * 8,
+         cpu_parity={**parity, "tol": 1e-8,
+                     "fitted_grad_limit": FITTED_GRAD_LIMIT[model]},
+         k2_f64=k2_rec,
+         hyp=m.get_hyp().tolist(),
+         fd_check_hyps="fitted" if fd_hyps is None else "given")
+    checked = [parity["fitted"]["value"], parity["fitted"]["nll"],
+               *parity["noise_raised"].values()]
+    check(max(checked) <= 1e-8, f"{model}: card vs CPU beyond 1e-8: "
+          f"{parity}")
+    measure, limit = FITTED_GRAD_LIMIT[model]
+    check(parity["fitted"][measure] <= limit, f"{model}: card vs CPU "
+          f"gradient at the fitted hyps, {measure} "
+          f"{parity['fitted'][measure]} beyond {limit}")
+    fd_model = m if fd_hyps is None else gp_from_state(
+        {"model": model, "x": Xtr, "y": ytr, "hyps": probe_hyps,
+         "dtype": "float64", "inducing": Xtr[-N_INDUCING:],
+         "jitter_u": m._jitter_u}, device="cuda")
+    phase_fd(torch, fd_model, Xte, f"fd_check_{model.lower()}")
+    return {"launches": launches, "k2": k2_rec, "hyp": m.get_hyp()}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1218,6 +1586,11 @@ def main() -> int:
                                             kernel, f"main_path_{kernel}")
         phase_cpu_parity(torch, gp64, paths, Xtr, ytr, Xte)
         phase_blocked_vs_library(torch, gp64, paths, Xtr, ytr)
+        search = phase_global_search(torch, Xtr, ytr, Xte, yte)
+        multi = phase_multistart(torch, Xtr, ytr, paths["se_ard"])
+        sparse = {"FITC": phase_sparse(torch, Xtr, ytr, Xte, yte, "FITC")}
+        sparse["VFE"] = phase_sparse(torch, Xtr, ytr, Xte, yte, "VFE",
+                                     fd_hyps=sparse["FITC"]["hyp"])
         src = "gp_tpu_torch/csrc/se_tile.cu"
         kernels = []
         for kernel, path in paths.items():
@@ -1282,6 +1655,44 @@ def main() -> int:
                                         "bound_by", "max_abs_err")}
                 kernels.append({**entry, "launches": launches,
                                 "main_path": f"blocked ({variant})"})
+        # the search and the multi-start run K1 and K3 (times at the main
+        # shape, f32, and at b = 128); the sparse paths run K2 in float64
+        # (times at (N, M) = (8000, 512), Kuu's (512, 512) beside them)
+        def row(name, source, replaces, rec, launches, path, **extra):
+            return {"name": name, "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": launches,
+                    "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                    "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                    "bound_by": rec["bound_by"],
+                    "library_ms": rec.get("library_ms"), "main_path": path,
+                    **extra}
+        k1 = timed[(kernel_name("se", True), "float32", 1.0)]
+        k3 = chol_timed[("chol_inv", "float32", LEAF, None)]
+        multi = {"k1": multi["launches"]["se_matrix_diag"]["se"],
+                 "k3": multi["chol_launches"]["chol_inv_reg"]}
+        for label, path in (("global_search", search["search"]),
+                            ("global_search_train_from_inf",
+                             search["train_from_inf"]),
+                            ("multistart", multi)):
+            n1, n3 = path["k1"], path["k3"]
+            check(n1 > 0 and n3 > 0, f"K1 or K3 not launched on {label}")
+            kernels.append(row(
+                "se_tile_diag", src, "gp_tpu/ops/pallas_kernels.py:89", k1,
+                n1, label, device_ms=k1["device_ms"], form="se",
+                shape=[N_TRAIN, N_TRAIN, DIM], dtype="float32"))
+            kernels.append(row(
+                "chol_inv", chol_src, "gp_tpu/ops/pallas_chol.py:180", k3,
+                n3, label, design="chol_inv_reg", shape=[LEAF, LEAF],
+                dtype="float32", library=k3["library"]))
+        for model, path in sparse.items():
+            n2 = path["launches"]["se_matrix"]["se"]
+            check(n2 > 0, f"K2 not launched on sparse_{model.lower()}")
+            rec = path["k2"]["kxu"]
+            kernels.append(row(
+                "se_tile", src, "gp_tpu/ops/pallas_kernels.py:71", rec, n2,
+                f"sparse_{model.lower()}", device_ms=rec["device_ms"],
+                form="se", shape=[rec["m"], rec["n"], rec["d"]],
+                dtype="float64", kuu=path["k2"]["kuu"]))
     except CheckFailed as exc:
         print(f"chip_smoke: check failed: {exc}", file=sys.stderr)
         return 1

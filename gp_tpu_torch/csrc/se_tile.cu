@@ -6,7 +6,7 @@
 //       overwritten by dvals (sf2 + sn2 on real rows) -- SYM = true;
 //   K2  _se_tile_kernel      (:71-86)   rectangular K(X1, X2) -- SYM = false.
 // Both compute, from rows already scaled by 1/lengthscale,
-//   sq = max(|a|^2 + |b|^2 - 2 a.b, 0)
+//   sq = max(|a|^2 + |b|^2 - 2 a.b, 0)      (NaN stays NaN)
 // in the quadratic-expansion form and order of gp_tpu's formula, then map
 // it, as gp_tpu writes the map, by FORM:
 //   SE   sf2 exp(-sq/2)                        (SE-ARD/iso)
@@ -329,7 +329,10 @@ se_tile(const T* __restrict__ a, const T* __restrict__ b,
 #pragma unroll
     for (int q = 0; q < VN; ++q) {
       T sq = na + nb[q] - T(2) * acc[s][q];
-      sq = sq > T(0) ? sq : T(0);
+      // the clamp keeps a NaN, as jnp.maximum and torch.clamp do: an
+      // infinite 1/lengthscale must give a NaN K (an INF objective), not
+      // a finite one
+      sq = sq < T(0) ? T(0) : sq;
       acc[s][q] = cov_from_sq<T, FORM>(sq, sf2, p1);
     }
   }

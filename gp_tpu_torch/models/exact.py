@@ -303,6 +303,12 @@ class GP(GPBase):
         x, y, solver = self._x, self._ys, self.solver
         return lambda v: objective_vg(kernel, noise_free, v, x, y, solver)
 
+    def _multistart_objective(self):
+        kernel, noise_free = self.kernel, self._noise_free
+        x, y, solver = self._x, self._ys, self.solver
+        return lambda vecs: torch.stack([multistart_objective(
+            kernel, noise_free, v, x, y, solver) for v in vecs])
+
     def _run_local_opt(self, vec0, lb_v, ub_v):
         return fit(self.kernel, self._noise_free, self._x, self._ys,
                    vec0, lb_v, ub_v, max_evals=self._MAX_EVAL,

@@ -292,3 +292,101 @@ def test_chol_wrappers_reject_what_the_kernels_do_not_take(cuda):
         chol_block.cholesky_panel(K, 3)
     with pytest.raises(ValueError):
         chol_block.cholesky_block(torch.ones(4, 5, device=cuda))
+
+
+# the sparse models' K2 shapes: Kxu and K(X*, U) ragged against the tile,
+# Kuu square, and the main shapes (N = 8000, M = 512, d = 24), float64
+SPARSE_SHAPES = [(300, 40, 5), (40, 40, 5), (1000, 512, 24), (8000, 512, 24),
+                 (512, 512, 24)]
+
+
+@pytest.mark.parametrize("m,n,d", SPARSE_SHAPES)
+def test_kernel_f64_at_sparse_shapes(cuda, m, n, d):
+    x1, x2, inv_l, sf2, _, _ = _inputs(cuda, torch.float64, m, n, d)
+    se_tile.reset_launches()
+    K = se_tile.se_matrix(inv_l, sf2, x1, x2)
+    torch.cuda.synchronize()
+    assert se_tile.launches["se_matrix"]["se"] == 1
+    P = se_tile.se_matrix_plain(inv_l, sf2, x1, x2)
+    assert bool(((K - P).abs() <= se_tile.rounding_bound(
+        inv_l, sf2, x1, x2, P)).all())
+
+
+def _sparse_problem(n=400, m=40, d=5):
+    import numpy as np
+    rng = np.random.default_rng(3)
+    X = rng.uniform(-2, 2, (n, d))
+    y = np.sin(X[:, 0]) + 0.3 * X[:, 1] * X[:, 2] + 0.1 * rng.standard_normal(n)
+    return X, y, X[-m:]
+
+
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_batch_objective_matches_one_candidate(cuda, chunk):
+    """The search's chunk objective (GP._multistart_objective) against
+    the one-candidate objective, float64, N = 400: one K1 launch per
+    candidate, the same INF set and values."""
+    import numpy as np
+    from gp_tpu_torch import GP
+    from gp_tpu_torch.models import exact
+    X, y, _ = _sparse_problem()
+    gp = GP(X, y, dtype=torch.float64)
+    h0 = gp._hyp_to_std(gp.get_default_hyps())
+    vecs = h0 + np.random.default_rng(0).uniform(-1, 1, (chunk, h0.size))
+    vecs[0, -2] += 8.0 if chunk > 1 else 0.0    # sn2 > mean(sf2): INF
+    V = gp._tensor(vecs)
+    se_tile.reset_launches()
+    batch = gp._multistart_objective()(V)
+    torch.cuda.synchronize()
+    assert se_tile.launches["se_matrix_diag"]["se"] == chunk
+    one = torch.stack([exact.multistart_objective(gp.kernel, False, v,
+                                                  gp._x, gp._ys) for v in V])
+    assert torch.equal(torch.isinf(batch), torch.isinf(one))
+    fin = torch.isfinite(one)
+    assert bool(fin.any())
+    assert torch.allclose(batch[fin], one[fin], rtol=1e-10, atol=0)
+
+
+@pytest.mark.parametrize("model", ["FITC", "VFE"])
+def test_sparse_nll_card_matches_cpu(cuda, model):
+    """FITC / VFE on the card against the CPU, float64: NLL and gradient
+    at rtol 1e-10 (relative to the largest entry), K2 launches only."""
+    import numpy as np
+    import gp_tpu_torch
+    X, y, U = _sparse_problem()
+    cls = getattr(gp_tpu_torch, model)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = cls(X, y, device=dev)
+        m.set_inducing(U)
+        assert m.dtype == torch.float64
+        vec = m._tensor(m._hyp_to_std(m.get_default_hyps() + 0.1))
+        se_tile.reset_launches()
+        f, g = m._objective_closure()(vec)
+        out[dev] = (float(f), g.cpu().numpy())
+        if dev == "cuda":
+            assert se_tile.launches["se_matrix"]["se"] == 2
+            assert se_tile.launches["se_matrix_diag"]["se"] == 0
+    (fc, gc), (fh, gh) = out["cuda"], out["cpu"]
+    assert abs(fc - fh) <= 1e-10 * abs(fh)
+    assert np.max(np.abs(gc - gh)) <= 1e-10 * np.max(np.abs(gh))
+
+
+@pytest.mark.parametrize("form,p1", [("se", 1.0), ("m52", 1.0), ("rq", 0.7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_keeps_nan_of_infinite_inverse_lengthscale(cuda, form, p1,
+                                                          dtype):
+    """An overflowed 1/lengthscale (inf) gives the plain version's NaN
+    entries, not finite ones: the start with length scales at -200 must
+    be INF on the card as on the CPU (the global search's entry)."""
+    x1, x2, inv_l, sf2, xs, dvals = _inputs(cuda, dtype, 130, 70, 3)
+    inv_l[0] = float("inf")
+    alpha = torch.tensor(p1, dtype=dtype, device=cuda)
+    for K, P in ((se_tile.se_matrix(inv_l, sf2, x1, x2, form, alpha),
+                  se_tile.se_matrix_plain(inv_l, sf2, x1, x2, form, alpha)),
+                 (se_tile.se_matrix_diag(inv_l, sf2, xs, dvals, form, alpha),
+                  se_tile.se_matrix_diag_plain(inv_l, sf2, xs, dvals, form,
+                                               alpha))):
+        assert bool(torch.isnan(P).any())
+        assert torch.equal(torch.isnan(K), torch.isnan(P))
+        fin = ~torch.isnan(P)           # 0 (sq = inf) or dvals
+        assert torch.equal(K[fin], P[fin])

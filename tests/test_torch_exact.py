@@ -284,6 +284,9 @@ def test_unported_paths_raise_not_implemented():
         TGP(np.zeros((32768, 1)), np.zeros(32768), device="cpu")
     with pytest.raises(NotImplementedError, match="module 12"):
         TGP(np.zeros((4, 1)), np.zeros(4), solver="qr", device="cpu")
-    gt = TGP(*_problem(n=20, d=3), device="cpu")
-    with pytest.raises(NotImplementedError, match="module 7"):
-        gt.train_multistart()
+    # the global search (module 7) is ported; the sparse models'
+    # distributed fit (module 14) is not
+    from gp_tpu_torch import FITC
+    ft = FITC(*_problem(n=20, d=3), device="cpu")
+    with pytest.raises(NotImplementedError, match="module 14"):
+        ft.train_distributed(None)
