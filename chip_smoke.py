@@ -94,6 +94,31 @@ line:
              fd_check_vfe, the input gradients against central differences
              (VFE's at FITC's fitted hyps)
 
+  bucketed_bo  the BO serving path: BucketedGP(X, y, bucket=128) (capacity
+             8064) and train(); _update_posterior's time; 64 absorbs of
+             held-out rows in O(N^2) (median ms against the bound of three
+             reads of the factor's lower triangle, one K2 launch each, the
+             factor buffer written in place); their posterior against a
+             fresh refactorization at the same hyps, float64 on the card
+             within 1e-8, float32 within twice the f32 refactorization's
+             gap to f64; one absorb past capacity (capacity 8192, the
+             standardization refreshed); add_data within capacity and
+             train() (the standardization frozen); predictions and both
+             *_with_grad (RMSE below 0.6 of the constant predictor's); K3
+             exactly one leaf per 128 padded rows of each blocked
+             factorization (64), no K4 or K5; K2 at absorb's (1, N) shape;
+             the path's launches (train, the absorbs, the fallback, the
+             refit, the predictions) apart from the checks' (the timed
+             refactorizations, the f64 twin, the comparison)
+  checkpoint save_model of the main path's GP and of bucketed_bo's model,
+             load_model onto the card: seconds, bytes, the loaded models'
+             predictions bit for bit the saved ones', no launch in the load
+  cli_gp, cli_fitc  train_x / train_y / test_x written by write_matrix,
+             then `python -m gp_tpu_torch gp 8000` and `fitc 8000 512` as
+             child processes (CLI_CHILD prints their launch counts): the
+             NLL within 1e-5 (gp) and 1e-8 (fitc) of the in-process fits',
+             pred within float32 rounding (gp) and 1e-8 (fitc) of theirs
+
 Each main path runs with the launch counts set to 0 just before it and
 read just after; it must have gone through its own form of K1 and K2 and
 no other, and through K3 at least 64 times per factorization (N = 8000
@@ -106,6 +131,7 @@ the result line {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -1364,11 +1390,12 @@ def phase_multistart(torch, Xtr, ytr, main) -> dict:
 N_INDUCING = 512
 
 
-def _k2_f64_record(torch, se_tile, x1, x2, inv_l, sf2) -> dict:
-    """K2 at (x1, x2) in float64 against its plain version (each entry
+def _k2_record(torch, se_tile, x1, x2, inv_l, sf2) -> dict:
+    """K2 at (x1, x2) in their dtype against its plain version (each entry
     within its rounding bound), times back to back and from a CUDA graph,
     the plain version's and the bound."""
     m, n, d = x1.shape[0], x2.shape[0], x1.shape[1]
+    dtype = str(x1.dtype).rsplit(".", 1)[-1]
     kern = lambda: se_tile.se_matrix(inv_l, sf2, x1, x2)
     plain = lambda: se_tile.se_matrix_plain(inv_l, sf2, x1, x2)
     out, ref = kern(), plain()
@@ -1378,8 +1405,9 @@ def _k2_f64_record(torch, se_tile, x1, x2, inv_l, sf2) -> dict:
     # bound's sf2 * tiny term underflows to 0)
     ratio = float(torch.where(err == 0, 0.0, err / bound).max())
     check(math.isfinite(ratio) and ratio <= 1.0,
-          f"se_tile f64 {m}x{n}x{d}: off by {ratio} times its rounding bound")
-    bound_ms, by = se_bound_ms(m, n, d, "float64", False)
+          f"se_tile {dtype} {m}x{n}x{d}: off by {ratio} times its rounding "
+          f"bound")
+    bound_ms, by = se_bound_ms(m, n, d, dtype, False)
     return {"m": m, "n": n, "d": d, "max_abs_err": float(err.max()),
             "max_err_over_bound": ratio, "ms": cuda_ms(torch, kern),
             "device_ms": graph_ms(torch, kern),
@@ -1504,9 +1532,8 @@ def phase_sparse(torch, Xtr, ytr, Xte, yte, model: str,
     chyp = m._tensor(probe_hyps)[:DIM + 1]
     inv_l, sf2 = torch.exp(-chyp[:DIM]), torch.exp(2.0 * chyp[DIM])
     u = m.inducing
-    k2_rec = {"kxu": _k2_f64_record(torch, se_tile, m.train_in, u, inv_l,
-                                    sf2),
-              "kuu": _k2_f64_record(torch, se_tile, u, u, inv_l, sf2)}
+    k2_rec = {"kxu": _k2_record(torch, se_tile, m.train_in, u, inv_l, sf2),
+              "kuu": _k2_record(torch, se_tile, u, u, inv_l, sf2)}
     gaps = np.diff(st.stamps)
     emit(phase, model=model, n=N_TRAIN, m=N_INDUCING, d=DIM,
          dtype="float64", nll=nll, evals=evals,
@@ -1539,7 +1566,433 @@ def phase_sparse(torch, Xtr, ytr, Xte, yte, model: str,
          "dtype": "float64", "inducing": Xtr[-N_INDUCING:],
          "jitter_u": m._jitter_u}, device="cuda")
     phase_fd(torch, fd_model, Xte, f"fd_check_{model.lower()}")
-    return {"launches": launches, "k2": k2_rec, "hyp": m.get_hyp()}
+    return {"launches": launches, "k2": k2_rec, "hyp": m.get_hyp(),
+            "nll": nll, "model": m}
+
+
+N_BUCKET = 128        # capacity 8064 at N = 8000: 64 absorbs fill it
+ABSORBS = 64
+ADDED = 4             # add_data rows within the grown capacity (8192)
+
+
+class factorizations:
+    """Counts the blocked factorizations inside the block: the outermost
+    calls of ops.blocked.blocked_cholesky, which both routes (the
+    objective's blocked_factor and set_k's chol.cholesky) look up at call
+    time, with the size of each; a factor of n rows pads to the panel
+    multiple and runs one K3 leaf per LEAF rows of it."""
+
+    def __enter__(self):
+        from gp_tpu_torch.ops import blocked, chol
+        self.mod, self.orig, self.sizes = blocked, blocked.blocked_cholesky, []
+        depth = [0]
+
+        def wrapped(K, *a, **kw):
+            if depth[0] == 0:
+                self.sizes.append(K.shape[-1])
+            depth[0] += 1
+            try:
+                return self.orig(K, *a, **kw)
+            finally:
+                depth[0] -= 1
+        blocked.blocked_cholesky = wrapped
+        self.block_for = chol._block_for
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.blocked_cholesky = self.orig
+
+    def leaves(self) -> int:
+        return sum(-(-n // self.block_for(n)) * self.block_for(n) // LEAF
+                   for n in self.sizes)
+
+
+def _counts(se_tile, chol_block) -> dict:
+    """The launch counts of the SE path's kernels (K1, K2, K3's register
+    kernel) and of everything else (other forms, other C entries)."""
+    k1 = se_tile.launches["se_matrix_diag"]["se"]
+    k2 = se_tile.launches["se_matrix"]["se"]
+    k3 = chol_block.launches["chol_inv_reg"]
+    total = sum(sum(f.values()) for f in se_tile.launches.values()) \
+        + sum(chol_block.launches.values())
+    return {"k1": k1, "k2": k2, "k3": k3, "other": total - k1 - k2 - k3}
+
+
+def _since(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def _plus(a: dict, b: dict) -> dict:
+    return {k: a[k] + b[k] for k in a}
+
+
+def _device_us_by_kernel(prof) -> dict:
+    """Device microseconds by kernel name from a torch.profiler run, and
+    their sum ("total"); empty when the profiler saw no device time."""
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if us > 0:
+            out[e.key[:80]] = us
+    if out:
+        out["total"] = sum(out.values())
+    return out
+
+
+def _bo_pred(m, Q):
+    """(mu, s2) of m at Q in float64."""
+    return tuple(t.double() for t in m.batch_predict(Q))
+
+
+def _rel_gap(a, b, ref) -> list:
+    """max |a - b| over max |ref|, for mu and for s2."""
+    return [float((x - y).abs().max() / r.abs().max())
+            for x, y, r in zip(a, b, ref)]
+
+
+def phase_bucketed_bo(torch, Xtr, ytr, Xte, yte) -> dict:
+    """The Bayesian-optimisation serving path on the card (SE-ARD f32):
+    BucketedGP(X, y, bucket=128) at N = 8000 (capacity 8064) and train();
+    _update_posterior's time; 64 absorbs of held-out rows (8001-8064), each
+    on the O(N^2) branch (the factor buffer written in place, one K2 and no
+    K1 or K3 launch each): the median ms against the bound of three reads
+    of the factor's lower triangle; then their posterior against a fresh
+    refactorization at the same hyps, in float64 on the card within 1e-8
+    and in float32 within twice the f32 refactorization's own gap to f64
+    (the two f32 posteriors are then no further apart than the sum of
+    their gaps to f64, if the appended one is no less accurate than the
+    refactorization); one absorb past capacity (the fallback: capacity
+    8192, the standardization refreshed); add_data of ADDED rows within
+    capacity and train() (the standardization frozen); the predictions on
+    the rest of the held-out rows (RMSE below 0.6 of the constant
+    predictor's).  K3 runs exactly one leaf per 128 padded rows of each
+    blocked factorization (64 at these sizes), and no K4 or K5.  The
+    path's launches ("launches", the kernels line's) sum train, the 64
+    absorbs, the fallback, add_data's train and the predictions: not the
+    timed refactorizations, nor the f64 twin and the refactorizations of
+    the comparison ("check_launches")."""
+    import numpy as np
+    from gp_tpu_torch import BucketedGP
+    from gp_tpu_torch.ops import chol_block, se_tile
+    from gp_tpu_torch.optim.lbfgsb import explain_result
+
+    se_tile.reset_launches()
+    chol_block.reset_launches()
+    phase_t0 = time.perf_counter()
+    with factorizations() as fz:
+        t0 = time.perf_counter()
+        bo = BucketedGP(Xtr, ytr, bucket=N_BUCKET)
+        check(bo.device.type == "cuda" and bo.dtype == torch.float32
+              and bo.capacity == N_TRAIN + ABSORBS, "BucketedGP(X, y, "
+              "bucket=128) must default to CUDA float32 at capacity 8064")
+        nll = bo.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    train_counts = _counts(se_tile, chol_block)
+    evals = int(bo.last_opt_result.evals)
+    status = explain_result(bo.last_opt_result)
+    check(train_counts["k1"] >= evals, f"bucketed train: K1 launched "
+          f"{train_counts['k1']} times for {evals} evaluations")
+    check(train_counts["k3"] == fz.leaves() == LEAVES_PER_FACTOR
+          * len(fz.sizes) and train_counts["other"] == 0,
+          f"bucketed train: {train_counts} for {len(fz.sizes)} blocked "
+          f"factorizations of sizes {sorted(set(fz.sizes))}")
+    hyp = bo.get_hyp()
+    path = dict(train_counts)
+
+    # one refactorization at the fitted hyps: the fallback's cost
+    before = _counts(se_tile, chol_block)
+    with factorizations() as fz:
+        upd_ms = cuda_ms(torch, bo._update_posterior, iters=3, warm=1)
+    upd = _since(before, _counts(se_tile, chol_block))
+    check(np.array_equal(bo.get_hyp(), hyp), "_update_posterior at the "
+          "fitted hyps inflated the noise")
+    check(upd["k3"] == LEAVES_PER_FACTOR * len(fz.sizes) == LEAVES_PER_FACTOR
+          * 4 and upd["k1"] == 0 and upd["other"] == 0,
+          f"_update_posterior: {upd} for {len(fz.sizes)} factorizations")
+
+    # 64 absorbs: 8000 -> 8064 = capacity, each appended in O(N^2)
+    L0 = bo._post[0]
+    before = _counts(se_tile, chol_block)
+    span_ms, wall_ms = [], []
+    for i in range(ABSORBS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        # the first absorb runs under torch.profiler: its device time by
+        # kernel (the profiler's host cost lands in this one sample)
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) if i == 0 \
+            else contextlib.nullcontext()
+        with prof:
+            t0 = time.perf_counter()
+            start.record()
+            bo.absorb(Xte[i], yte[i])
+            end.record()
+            end.synchronize()
+        if i == 0:
+            absorb_profile = _device_us_by_kernel(prof)
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        span_ms.append(start.elapsed_time(end))
+        check(bo._post[0] is L0, f"absorb {i}: the factor was not appended "
+              f"in place")
+    absorbs = _since(before, _counts(se_tile, chol_block))
+    cap = bo.capacity
+    check(bo.num_train == cap == N_TRAIN + ABSORBS and bo.trained,
+          f"after {ABSORBS} absorbs: {bo.num_train} rows, capacity {cap}")
+    check(absorbs == {"k1": 0, "k2": ABSORBS, "k3": 0, "other": 0},
+          f"{ABSORBS} absorbs launched {absorbs}: one K2 each expected")
+    absorb_bound = 3 * cap * cap / 2 * 4 / PEAK_BYTES_S * 1e3
+    path = _plus(path, absorbs)
+
+    # the appended posterior against a fresh one at the same hyps, f64 and
+    # f32, on the held-out rows the phase never adds
+    Q = Xte[ABSORBS + 1 + ADDED:]
+    before = _counts(se_tile, chol_block)
+    b64 = BucketedGP(Xtr, ytr, bucket=N_BUCKET, dtype=torch.float64)
+    b64._hyps = b64._tensor(hyp)
+    b64._update_posterior()
+    b64._trained = True
+    for i in range(ABSORBS):
+        b64.absorb(Xte[i], yte[i])
+    app32, app64 = _bo_pred(bo, Q), _bo_pred(b64, Q)
+    bo._update_posterior()
+    b64._update_posterior()
+    check(np.array_equal(bo.get_hyp(), hyp)
+          and np.array_equal(b64.get_hyp(), hyp),
+          "the refactorization at the fitted hyps inflated the noise")
+    ref32, ref64 = _bo_pred(bo, Q), _bo_pred(b64, Q)
+    del b64
+    compare = _since(before, _counts(se_tile, chol_block))
+    gap64 = _rel_gap(app64, ref64, ref64)
+    gap32 = _rel_gap(app32, ref32, ref64)
+    ref_gap32 = _rel_gap(ref32, ref64, ref64)
+    bound32 = [2 * g for g in ref_gap32]
+
+    # one absorb past capacity: add_data (the buffers grow, the
+    # standardization refreshes) and a refactorization
+    mu0 = bo._y_mu
+    before = _counts(se_tile, chol_block)
+    with factorizations() as fz:
+        t0 = time.perf_counter()
+        bo.absorb(Xte[ABSORBS], yte[ABSORBS])
+        torch.cuda.synchronize()
+        fallback_s = time.perf_counter() - t0
+    fallback = _since(before, _counts(se_tile, chol_block))
+    path = _plus(path, fallback)
+    # the model's targets, in its dtype, as its standardization reads them
+    y_all = bo._y.double().cpu().numpy()
+    check(np.array_equal(y_all, np.concatenate([ytr, yte[:ABSORBS + 1]])
+                         .astype(np.float32)), "absorb dropped or moved a "
+          "target")
+    cap = N_TRAIN + ABSORBS + N_BUCKET
+    check(bo.capacity == cap and bo.num_train == N_TRAIN + ABSORBS + 1
+          and bo.trained and tuple(bo._post[0].shape) == (cap, cap),
+          f"absorb past capacity: capacity {bo.capacity}, "
+          f"{bo.num_train} rows")
+    check(bo._y_mu != mu0 and bo._y_mu == float(np.mean(y_all))
+          and bo._y_sigma == float(np.std(y_all, ddof=1)),
+          "absorb past capacity did not refresh the standardization")
+    check(fallback["k3"] == fz.leaves() == LEAVES_PER_FACTOR
+          and fallback["k1"] == 0 and fallback["other"] == 0,
+          f"absorb past capacity launched {fallback} for factorizations of "
+          f"{fz.sizes}")
+
+    # add_data within capacity, then train() from the current hyps
+    frozen = (bo._y_mu, bo._y_sigma)
+    lo = ABSORBS + 1
+    before = _counts(se_tile, chol_block)
+    bo.add_data(Xte[lo:lo + ADDED], yte[lo:lo + ADDED])
+    check(bo.capacity == cap and (bo._y_mu, bo._y_sigma) == frozen,
+          "add_data within capacity moved the capacity or the "
+          "standardization")
+    with factorizations() as fz:
+        t0 = time.perf_counter()
+        nll2 = bo.train(bo.get_hyp())
+        torch.cuda.synchronize()
+        train2_s = time.perf_counter() - t0
+    train2 = _since(before, _counts(se_tile, chol_block))
+    check((bo._y_mu, bo._y_sigma) == frozen and math.isfinite(nll2),
+          "train() after add_data moved the standardization or ended INF")
+    check(train2["k3"] == fz.leaves() == LEAVES_PER_FACTOR * len(fz.sizes)
+          and train2["other"] == 0, f"train() after add_data: {train2} "
+          f"for {len(fz.sizes)} blocked factorizations")
+
+    # the BO acquisition's queries on the remaining held-out rows
+    mu, s2 = bo.batch_predict(Q)
+    yg, gy = bo.batch_predict_y_with_grad(Q[:N_GRAD])
+    sg, gs = bo.batch_predict_s2_with_grad(Q[:N_GRAD])
+    torch.cuda.synchronize()
+    for k, v in {"mu": mu, "s2": s2, "y_wg": yg, "gy": gy, "s2_wg": sg,
+                 "gs2": gs}.items():
+        check(bool(torch.isfinite(v).all()), f"bucketed {k} not finite")
+    rmse = _rmse(mu.cpu().numpy(), yte[ABSORBS + 1 + ADDED:])
+    rmse_const = _rmse(np.full(len(Q), ytr.mean()),
+                       yte[ABSORBS + 1 + ADDED:])
+    path = _plus(path, _since(before, _counts(se_tile, chol_block)))
+    res = {"n": N_TRAIN, "bucket": N_BUCKET,
+           "capacity_after_train": N_TRAIN + ABSORBS,
+           "nll": nll, "evals": evals, "train_s": train_s,
+           "status": status, "update_posterior_ms": upd_ms,
+           "absorb_ms_median": float(np.median(span_ms)),
+           "absorb_ms_max": float(np.max(span_ms)),
+           "absorb_host_ms_median": float(np.median(wall_ms)),
+           "absorb_bound_ms": absorb_bound, "absorb_bound_by": "bytes",
+           "absorb_launches": absorbs,
+           "absorb_profile_device_us": absorb_profile,
+           "appended_vs_refactorized": {
+               "f64_rel_gap_mu_s2": gap64, "f64_limit": 1e-8,
+               "f32_rel_gap_mu_s2": gap32, "f32_bound_mu_s2": bound32,
+               "f32_refactorization_gap_to_f64_mu_s2": ref_gap32},
+           "fallback_s": fallback_s, "fallback_launches": fallback,
+           "capacity_after_fallback": bo.capacity,
+           "y_mu": bo._y_mu, "y_sigma": bo._y_sigma,
+           "train_after_add_data": {"nll": nll2, "seconds": train2_s,
+                                    "evals": int(bo.last_opt_result.evals)},
+           "rmse": rmse, "rmse_const": rmse_const,
+           "train_launches": train_counts, "launches": path,
+           "check_launches": {"update_posterior_timed": upd,
+                              "f64_twin_and_refactorizations": compare},
+           "seconds": time.perf_counter() - phase_t0}
+    emit("bucketed_bo", **res)
+    check(max(gap64) <= 1e-8, f"f64: absorbed posterior {gap64} from the "
+          f"refactorization's, beyond 1e-8")
+    check(gap32[0] <= bound32[0] and gap32[1] <= bound32[1],
+          f"f32: absorbed posterior {gap32} from the refactorization's, "
+          f"beyond {bound32}")
+    check(rmse < 0.6 * rmse_const, f"bucketed: held-out RMSE {rmse} not "
+          f"below 0.6 of the constant predictor's {rmse_const}")
+    x1 = bo._tensor(Xte[:1])
+    chyp = bo._hyps[:DIM + 1]
+    k2 = _k2_record(torch, se_tile, x1, bo._x, torch.exp(-chyp[:DIM]),
+                    torch.exp(2.0 * chyp[DIM]))
+    return {"model": bo, "launches": path, "k2_absorb": k2}
+
+
+def phase_checkpoint(torch, models: dict, Xte) -> None:
+    """save_model of trained models (the main path's GP, bucketed_bo's
+    BucketedGP) and load_model onto the card: seconds and bytes; the
+    loaded model's predictions bit for bit the saved one's, and no launch
+    at all in the load (no refactorization)."""
+    import tempfile
+    from gp_tpu_torch.ops import chol_block, se_tile
+    from gp_tpu_torch.utils.checkpoint import load_model, save_model
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, m in models.items():
+            path = os.path.join(tmp, f"{label}.npz")
+            t0 = time.perf_counter()
+            save_model(m, path)
+            save_s = time.perf_counter() - t0
+            se_tile.reset_launches()
+            chol_block.reset_launches()
+            t0 = time.perf_counter()
+            r = load_model(path)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            loaded = _counts(se_tile, chol_block)
+            check(type(r) is type(m) and r.device.type == "cuda"
+                  and r.dtype == m.dtype and r.trained,
+                  f"checkpoint {label}: loaded {type(r).__name__} on "
+                  f"{r.device}, {r.dtype}")
+            check(not any(loaded.values()), f"checkpoint {label}: the load "
+                  f"launched {loaded}")
+            same = all(torch.equal(a, b) for a, b in
+                       zip((*m.batch_predict(Xte), m.batch_predict_y(Xte)),
+                           (*r.batch_predict(Xte), r.batch_predict_y(Xte))))
+            res[label] = {"model": type(m).__name__, "n": m.num_train,
+                          "save_s": save_s, "bytes": os.path.getsize(path),
+                          "load_s": load_s, "load_launches": loaded,
+                          "predictions_bit_equal": same}
+            check(same, f"checkpoint {label}: the loaded model's predictions "
+                  f"differ from the saved one's")
+            del r
+    emit("checkpoint", **res)
+
+
+# `python -m gp_tpu_torch` as a child process that also prints the launch
+# counts of its run (on its last line): runpy runs the package's
+# __main__ as -m does
+CLI_CHILD = """\
+import json, runpy, sys
+from gp_tpu_torch.ops import chol_block, se_tile
+sys.argv = ["gp_tpu_torch", *sys.argv[1:]]
+try:
+    runpy.run_module("gp_tpu_torch", run_name="__main__", alter_sys=True)
+except SystemExit as exc:
+    code = exc.code
+print(json.dumps({"se_tile": se_tile.launches,
+                  "chol_block": chol_block.launches}))
+sys.exit(code)
+"""
+
+
+def phase_cli(torch, Xtr, ytr, Xte, gp, fitc) -> dict:
+    """train_x / train_y / test_x written with write_matrix (17 digits:
+    float64 round-trips exactly) into a temporary directory, then
+    `python -m gp_tpu_torch gp 8000` and `fitc 8000 512` there as child
+    processes, on the card: seconds, the NLL from their stdout, pred.  The
+    gp NLL within 1e-5 of main_path's and pred within float32 rounding
+    (4 ulp of the largest value) of the in-process model's; FITC's NLL and
+    pred within 1e-8 of sparse_fitc's."""
+    import tempfile
+    import numpy as np
+    from gp_tpu_torch.utils.io import read_matrix, write_matrix
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        for name, a in (("train_x", Xtr), ("train_y", ytr), ("test_x", Xte)):
+            write_matrix(os.path.join(tmp, name), a)
+        write_s = time.perf_counter() - t0
+        check(np.array_equal(read_matrix(os.path.join(tmp, "train_x")), Xtr)
+              and np.array_equal(read_matrix(os.path.join(tmp, "train_y"))
+                                 .ravel(), ytr),
+              "the text files do not round-trip float64")
+        pp = os.environ.get("PYTHONPATH")
+        env = dict(os.environ, PYTHONPATH=ROOT + (os.pathsep + pp if pp
+                                                  else ""))
+        runs = (("cli_gp", ["gp", str(N_TRAIN)], gp, 1e-5),
+                ("cli_fitc", ["fitc", str(N_TRAIN), str(N_INDUCING)], fitc,
+                 1e-8))
+        for phase, args, model, tol in runs:
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-c", CLI_CHILD, *args],
+                               cwd=tmp, env=env, capture_output=True,
+                               text=True, timeout=600)
+            secs = time.perf_counter() - t0
+            check(r.returncode == 0, f"{phase}: exit {r.returncode}: "
+                  f"{r.stderr[-2000:]}")
+            lines = r.stdout.strip().splitlines()
+            launches = json.loads(lines[-1])
+            nll = float(re.search(r"Negative log likelihood: (\S+)",
+                                  r.stdout).group(1))
+            pred = read_matrix(os.path.join(tmp, "pred"))
+            mu = model.batch_predict_y(Xte).cpu().numpy()
+            sd = np.sqrt(model.batch_predict_s2(Xte).cpu().numpy())
+            ref_nll = model.nll()
+            nll_rel = abs(nll - ref_nll) / abs(ref_nll)
+            gaps = [float(np.max(np.abs(pred[:, k] - v)) / np.max(np.abs(v)))
+                    for k, v in enumerate((mu, sd))]
+            pred_tol = 4 * 2.0 ** -23 if model.dtype == torch.float32 \
+                else 1e-8
+            res = {"args": args, "seconds": secs, "write_s": write_s,
+                   "nll": nll, "in_process_nll": ref_nll,
+                   "nll_rel_gap": nll_rel, "nll_tol": tol,
+                   "pred_rel_gap_mu_sd": gaps, "pred_tol": pred_tol,
+                   "pred_shape": list(pred.shape),
+                   "status_line": lines[1] if len(lines) > 1 else "",
+                   "launches": launches}
+            emit(phase, **res)
+            check(pred.shape == (N_TEST, 2) and np.isfinite(pred).all(),
+                  f"{phase}: pred of shape {pred.shape} or not finite")
+            check(nll_rel <= tol, f"{phase}: NLL {nll} against the in-process "
+                  f"{ref_nll}, beyond {tol}")
+            check(max(gaps) <= pred_tol, f"{phase}: pred {gaps} from the "
+                  f"in-process model's, beyond {pred_tol}")
+            out[phase] = launches
+    return out
 
 
 def main() -> int:
@@ -1591,6 +2044,11 @@ def main() -> int:
         sparse = {"FITC": phase_sparse(torch, Xtr, ytr, Xte, yte, "FITC")}
         sparse["VFE"] = phase_sparse(torch, Xtr, ytr, Xte, yte, "VFE",
                                      fd_hyps=sparse["FITC"]["hyp"])
+        bucketed = phase_bucketed_bo(torch, Xtr, ytr, Xte, yte)
+        phase_checkpoint(torch, {"main_path": paths["se_ard"]["gp"],
+                                 "bucketed_bo": bucketed["model"]}, Xte)
+        cli = phase_cli(torch, Xtr, ytr, Xte, paths["se_ard"]["gp"],
+                        sparse["FITC"]["model"])
         src = "gp_tpu_torch/csrc/se_tile.cu"
         kernels = []
         for kernel, path in paths.items():
@@ -1693,6 +2151,44 @@ def main() -> int:
                 f"sparse_{model.lower()}", device_ms=rec["device_ms"],
                 form="se", shape=[rec["m"], rec["n"], rec["d"]],
                 dtype="float64", kuu=path["k2"]["kuu"]))
+        # the BO serving path (its own launches: train, the absorbs, the
+        # fallback, add_data's train, the predictions; K2's time at
+        # absorb's (1, N) shape) and the CLI's child processes (their
+        # counts, printed by CLI_CHILD)
+        k2 = timed[(kernel_name("se", False), "float32", 1.0)]
+        bo_k2 = bucketed["k2_absorb"]
+        bo = bucketed["launches"]
+        gp_cli = cli["cli_gp"]
+        fitc_cli = cli["cli_fitc"]
+        check(fitc_cli["se_tile"]["se_matrix_diag"]["se"] == 0
+              and sum(fitc_cli["chol_block"].values()) == 0,
+              f"cli_fitc launched K1 or K3: {fitc_cli}")
+        for label, n1, n2, n3, rec2 in (
+                ("bucketed_bo", bo["k1"], bo["k2"], bo["k3"], bo_k2),
+                ("cli_gp", gp_cli["se_tile"]["se_matrix_diag"]["se"],
+                 gp_cli["se_tile"]["se_matrix"]["se"],
+                 gp_cli["chol_block"]["chol_inv_reg"], k2)):
+            check(n1 > 0 and n2 > 0 and n3 > 0,
+                  f"K1, K2 or K3 not launched on {label}")
+            kernels.append(row(
+                "se_tile_diag", src, "gp_tpu/ops/pallas_kernels.py:89", k1,
+                n1, label, device_ms=k1["device_ms"], form="se",
+                shape=[N_TRAIN, N_TRAIN, DIM], dtype="float32"))
+            kernels.append(row(
+                "se_tile", src, "gp_tpu/ops/pallas_kernels.py:71", rec2, n2,
+                label, device_ms=rec2["device_ms"], form="se",
+                shape=[rec2["m"], rec2["n"], rec2["d"]], dtype="float32"))
+            kernels.append(row(
+                "chol_inv", chol_src, "gp_tpu/ops/pallas_chol.py:180", k3,
+                n3, label, design="chol_inv_reg", shape=[LEAF, LEAF],
+                dtype="float32", library=k3["library"]))
+        n2 = fitc_cli["se_tile"]["se_matrix"]["se"]
+        check(n2 > 0, "K2 not launched on cli_fitc")
+        rec = sparse["FITC"]["k2"]["kxu"]
+        kernels.append(row(
+            "se_tile", src, "gp_tpu/ops/pallas_kernels.py:71", rec, n2,
+            "cli_fitc", device_ms=rec["device_ms"], form="se",
+            shape=[rec["m"], rec["n"], rec["d"]], dtype="float64"))
     except CheckFailed as exc:
         print(f"chip_smoke: check failed: {exc}", file=sys.stderr)
         return 1

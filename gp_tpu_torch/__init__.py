@@ -15,9 +15,13 @@ device="cpu".
     fitc = FITC(X, y)            # CUDA, float64; also VFE
     fitc.set_inducing(X[-512:])
     fitc.train()
+    bo = BucketedGP(X, y, bucket=128)  # BO serving: absorb in O(N^2)
+    bo.train(); bo.absorb(x_new, y_new)
+    bo.save("model.npz"); GP.load("model.npz")   # gp_tpu's file format
 """
 
 from .config import INF, default_dtype
+from .models.bucketed import BucketedGP
 from .models.exact import GP
 from .models.fitc import FITC
 from .models.vfe import VFE
@@ -25,6 +29,6 @@ from .ops.kernels import KERNELS, SE_ARD, SE_ISO, get_kernel
 from .ops.kernels_extra import (MATERN32, MATERN32_ISO, MATERN52,
                                 MATERN52_ISO, RQ, RQ_ISO)
 
-__all__ = ["GP", "FITC", "VFE", "SE_ARD", "SE_ISO", "MATERN52", "MATERN52_ISO",
-           "MATERN32", "MATERN32_ISO", "RQ", "RQ_ISO", "KERNELS",
-           "get_kernel", "INF", "default_dtype"]
+__all__ = ["GP", "BucketedGP", "FITC", "VFE", "SE_ARD", "SE_ISO",
+           "MATERN52", "MATERN52_ISO", "MATERN32", "MATERN32_ISO", "RQ",
+           "RQ_ISO", "KERNELS", "get_kernel", "INF", "default_dtype"]

@@ -59,6 +59,24 @@ def from_opt_vec(vec, noise_free: bool):
     return torch.cat([vec[:-1], neg_inf, vec[-1:]])
 
 
+def debug_decomp_enabled() -> bool:
+    """gp_tpu's switch for the per-evaluation NLL breakdown
+    (models/base.py:55-62), the reference's MYDEBUG per-evaluation output
+    (GP.cpp:144-146, VFE.cpp:242-245): debug mode (config.DEBUG or
+    GP_TPU_DEBUG=1) AND GP_TPU_VERBOSE_OPT=1.  Read on each call."""
+    return ((config.DEBUG or os.environ.get("GP_TPU_DEBUG", "0") == "1")
+            and os.environ.get("GP_TPU_VERBOSE_OPT", "0") == "1")
+
+
+def debug_print_nll_decomp(tag: str, **terms):
+    """Print one evaluation's NLL terms on stdout as gp_tpu's
+    jax.debug.print writes them: "[GP_TPU_DEBUG] tag: key=value ...", each
+    value as numpy prints a 0-d array.  Syncs every term to the host, so
+    the objectives call it only when debug_decomp_enabled()."""
+    body = " ".join(f"{k}={np.asarray(_np(v))}" for k, v in terms.items())
+    print(f"[GP_TPU_DEBUG] {tag}: {body}", flush=True)
+
+
 def sanitize_value_and_grad(f, g):
     """INF-objective semantics (GP.cpp:147-171): non-finite value OR any
     non-finite gradient component turns the evaluation into (+inf, 0)."""
@@ -183,6 +201,7 @@ class GPBase:
         self._hyps = None
         # the global search's draws (optim/multistart.py): an explicit
         # generator seeded here, as gp_tpu keys its jax.random from seed
+        self._seed = int(seed)
         self.draws = GeneratorDraws(seed)
         self.last_search = None      # (best f, evaluations) of the search
         self._post = None            # posterior cache: (*factors, invKys)
@@ -488,6 +507,21 @@ class GPBase:
         denom = np.linalg.norm(fd) + 1e-300
         rel = float(np.linalg.norm(g - fd) / denom)
         return g, fd, rel
+
+    # -- checkpoint / resume (gp_tpu base.py:577-590) ------------------------
+    def save(self, path: str) -> None:
+        """Write the model and its posterior cache to an .npz checkpoint in
+        gp_tpu's format (utils/checkpoint.py)."""
+        from ..utils.checkpoint import save_model
+        save_model(self, path)
+
+    @staticmethod
+    def load(path: str, device=None):
+        """A model from a checkpoint of either package, its posterior cache
+        intact (no refactorization); on CUDA unless device says
+        otherwise."""
+        from ..utils.checkpoint import load_model
+        return load_model(path, device)
 
     # -- shared prediction surface (GP.h:104-119) ----------------------------
     def _require_trained(self):

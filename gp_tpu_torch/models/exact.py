@@ -23,12 +23,17 @@ single-point function.  Here the batch is written out: K(X*, X) is built
 once with X* requiring grad, and autograd of mu.sum() (or s2.sum()) gives
 every point's gradient, because row i depends on X*[i] alone.
 
+Under GP_TPU_DEBUG=1 and GP_TPU_VERBOSE_OPT=1 (base.debug_decomp_enabled)
+nll_raw and nll_vg_raw print gp_tpu's per-evaluation NLL breakdown; off,
+they add no host sync.  The masked family at the end of the module
+(BucketedGP's) computes on the live rows of a capacity buffer.
+
 Not ported here: the stream regime (N >= 32768: nll_vg_streamed,
 set_k_streamed and the factor-as-temp predictions) is ROADMAP module 11,
 and any N at or past that raises NotImplementedError; gp_tpu's far-pad
 decoy branch (exact.py:218-309) avoids XLA:TPU's pad and slice costs and
 is not carried: every spec pads once instead; the distributed layer is
-module 14, the masked (bucketed) family module 10.
+module 14.
 """
 
 from __future__ import annotations
@@ -38,13 +43,15 @@ import math
 import torch
 
 from ..config import DEFAULT_SEED, INF
-from ..ops.blocked import add_diag
-from ..ops.chol import chol_logdet, factor_and_inverse
+from ..ops.blocked import add_diag, eye_pad
+from ..ops.chol import (chol_logdet, factor_and_inverse, solve_lower,
+                        solve_lower_t)
 from ..ops.kernels import KernelSpec, get_k_noise
 from ..ops.solvers import CHOL, SolverSpec
 from ..optim.lbfgsb import lbfgsb_impl
-from .base import (GPBase, from_opt_vec, hyp_mean, hyp_sn2,
-                   sanitize_value_and_grad, to_opt_vec)
+from .base import (GPBase, debug_decomp_enabled, debug_print_nll_decomp,
+                   from_opt_vec, hyp_mean, hyp_sn2, sanitize_value_and_grad,
+                   to_opt_vec)
 
 # Row count from which gp_tpu switches to its memory-streamed objective
 # and posterior (exact.py:38-41), which compute a refined NLL.
@@ -67,9 +74,8 @@ def _half_n_log_2pi(n: int) -> float:
 # Pure functions
 # --------------------------------------------------------------------------
 
-def nll_raw(kernel: KernelSpec, hyp, x, y, solver: SolverSpec = CHOL):
-    """Negative log marginal likelihood; NaN/inf propagate.
-    GP::_calcNegLogProb (GP.cpp:120-148)."""
+def _nll_terms(kernel: KernelSpec, hyp, x, y, solver: SolverSpec):
+    """(data_fit, half_logdet, norm_const) of the NLL at hyp."""
     n = x.shape[0]
     _check_n(n)
     nc = kernel.num_hyp(x.shape[1])
@@ -77,16 +83,37 @@ def nll_raw(kernel: KernelSpec, hyp, x, y, solver: SolverSpec = CHOL):
     K = get_k_noise(kernel)(hyp[:nc], hyp_sn2(hyp), x, n)
     f = solver.factor(K)
     alpha = solver.solve(f, r)
-    return (0.5 * torch.dot(r, alpha) + 0.5 * solver.logdet(f)
-            + _half_n_log_2pi(n))
+    return (0.5 * torch.dot(r, alpha), 0.5 * solver.logdet(f),
+            _half_n_log_2pi(n))
 
 
-def nll(kernel: KernelSpec, hyp, x, y, solver: SolverSpec = CHOL):
-    v = nll_raw(kernel, hyp, x, y, solver)
+def _print_decomp(tag: str, data_fit, half_logdet, norm_const) -> None:
+    debug_print_nll_decomp(tag, nlz=data_fit + half_logdet + norm_const,
+                           data_fit=data_fit, half_logdet=half_logdet,
+                           norm_const=norm_const)
+
+
+def nll_raw(kernel: KernelSpec, hyp, x, y, solver: SolverSpec = CHOL,
+            decomp: bool = True):
+    """Negative log marginal likelihood; NaN/inf propagate.
+    GP::_calcNegLogProb (GP.cpp:120-148).  Under debug_decomp_enabled()
+    prints gp_tpu's "nll" breakdown (exact.py:113-118), unless decomp is
+    False (the masked family's callers: gp_tpu's prints nothing)."""
+    data_fit, half_logdet, norm_const = _nll_terms(kernel, hyp, x, y,
+                                                   solver)
+    if decomp and debug_decomp_enabled():
+        _print_decomp("nll", data_fit, half_logdet, norm_const)
+    return data_fit + half_logdet + norm_const
+
+
+def nll(kernel: KernelSpec, hyp, x, y, solver: SolverSpec = CHOL,
+        decomp: bool = True):
+    v = nll_raw(kernel, hyp, x, y, solver, decomp)
     return torch.where(torch.isfinite(v), v, torch.full_like(v, INF))
 
 
-def nll_vg_raw(kernel: KernelSpec, hyp, x, y, blocked=None):
+def nll_vg_raw(kernel: KernelSpec, hyp, x, y, blocked=None,
+               decomp: bool = True):
     """NLL + analytic hyperparameter gradient via the explicit inverse
     (GP.cpp:120-176):
 
@@ -102,7 +129,17 @@ def nll_vg_raw(kernel: KernelSpec, hyp, x, y, blocked=None):
     blocked: the factor's route, as chol.factor_and_inverse takes it
     (None: by size and device).  NaN/inf propagate (the caller
     sanitizes).  Cholesky only.  No host sync: every scalar stays on the
-    device."""
+    device, unless debug_decomp_enabled(), which prints gp_tpu's "nll_vg"
+    breakdown (exact.py:198-202); decomp=False keeps it silent, as
+    nll_raw's."""
+    value, grad, terms = _nll_vg_terms(kernel, hyp, x, y, blocked)
+    if decomp and debug_decomp_enabled():
+        _print_decomp("nll_vg", *terms)
+    return value, grad
+
+
+def _nll_vg_terms(kernel: KernelSpec, hyp, x, y, blocked):
+    """(value, grad, (data_fit, half_logdet, norm_const)) of nll_vg_raw."""
     n = x.shape[0]
     _check_n(n)
     nc = kernel.num_hyp(x.shape[1])
@@ -119,8 +156,9 @@ def nll_vg_raw(kernel: KernelSpec, hyp, x, y, blocked=None):
     r = y - hyp_mean(hyp)
     # alpha from the (already needed) explicit inverse: one matvec
     alpha = Kinv @ r
-    value = (0.5 * torch.dot(r, alpha) + 0.5 * chol_logdet(L)
-             + _half_n_log_2pi(n))
+    terms = (0.5 * torch.dot(r, alpha), 0.5 * chol_logdet(L),
+             _half_n_log_2pi(n))
+    value = terms[0] + terms[1] + terms[2]
     if generic:
         del L
         # Q = Kinv - alpha alpha^T, written over Kinv (dead from here)
@@ -134,40 +172,43 @@ def nll_vg_raw(kernel: KernelSpec, hyp, x, y, blocked=None):
     g_mean = -torch.sum(alpha)
     grad = torch.cat([0.5 * g_cov_t,
                       torch.stack([g_sn, g_mean]).to(g_cov_t.dtype)])
-    return value, grad
+    return value, grad, terms
 
 
 def objective_vg(kernel: KernelSpec, noise_free: bool, vec, x, y,
-                 solver: SolverSpec = CHOL, blocked=None):
+                 solver: SolverSpec = CHOL, blocked=None,
+                 decomp: bool = True):
     """(value, grad) over the optimization vector, INF-sanitized; blocked
-    as in nll_vg_raw."""
+    and decomp as in nll_vg_raw."""
     if solver.name != "chol":
         raise NotImplementedError(
             f"solver {solver.name!r}: only 'chol' is ported (ROADMAP "
             f"module 12)")
     f, g_hyp = nll_vg_raw(kernel, from_opt_vec(vec, noise_free), x, y,
-                          blocked)
+                          blocked, decomp)
     return sanitize_value_and_grad(f, to_opt_vec(g_hyp, noise_free))
 
 
 def multistart_objective(kernel: KernelSpec, noise_free: bool, vec, x, y,
-                         solver: SolverSpec = CHOL):
+                         solver: SolverSpec = CHOL, decomp: bool = True):
     """NLL with the sn2 > mean(sf2) rejection (GP.cpp:470-471)."""
     hyp = from_opt_vec(vec, noise_free)
     nc = kernel.num_hyp(x.shape[1])
     sf2_mean = torch.mean(kernel.diag_k(hyp[:nc], x))
-    v = nll_raw(kernel, hyp, x, y, solver)
+    v = nll_raw(kernel, hyp, x, y, solver, decomp)
     ok = torch.isfinite(v) & (hyp_sn2(hyp) <= sf2_mean)
     return torch.where(ok, v, torch.full_like(v, INF))
 
 
 def fit(kernel: KernelSpec, noise_free: bool, x, y, vec0, lb, ub,
-        max_evals: int = 160, solver: SolverSpec = CHOL):
+        max_evals: int = 160, solver: SolverSpec = CHOL,
+        decomp: bool = True):
     """The bounded local MLE optimization.
 
     Dtype contract: optimizer state runs in the DATA dtype; a float64 vec0
     over float32 data is cast down (gp_tpu exact.py:643-648)."""
-    fun = lambda v: objective_vg(kernel, noise_free, v, x, y, solver)
+    fun = lambda v: objective_vg(kernel, noise_free, v, x, y, solver,
+                                 decomp=decomp)
     vec0, lb, ub = (torch.as_tensor(a).to(device=x.device, dtype=x.dtype)
                     for a in (vec0, lb, ub))
     return lbfgsb_impl(fun, vec0, lb, ub, max_evals=max_evals)
@@ -284,6 +325,9 @@ class GP(GPBase):
     """
 
     _MAX_EVAL = 160
+    # whether the objective prints the NLL breakdown under
+    # debug_decomp_enabled() (BucketedGP's does not, as gp_tpu's)
+    _DECOMP = True
 
     def __init__(self, train_x, train_y, kernel="se_ard", dtype=None,
                  seed: int = DEFAULT_SEED, solver="chol", device=None):
@@ -296,23 +340,27 @@ class GP(GPBase):
         _check_n(self.num_train)
 
     def _nll_value(self, hyp):
-        return nll(self.kernel, hyp, self._x, self._y, self.solver)
+        return nll(self.kernel, hyp, self._x, self._y, self.solver,
+                   self._DECOMP)
 
     def _objective_closure(self):
-        kernel, noise_free = self.kernel, self._noise_free
+        kernel, noise_free, decomp = self.kernel, self._noise_free, \
+            self._DECOMP
         x, y, solver = self._x, self._ys, self.solver
-        return lambda v: objective_vg(kernel, noise_free, v, x, y, solver)
+        return lambda v: objective_vg(kernel, noise_free, v, x, y, solver,
+                                      decomp=decomp)
 
     def _multistart_objective(self):
-        kernel, noise_free = self.kernel, self._noise_free
+        kernel, noise_free, decomp = self.kernel, self._noise_free, \
+            self._DECOMP
         x, y, solver = self._x, self._ys, self.solver
         return lambda vecs: torch.stack([multistart_objective(
-            kernel, noise_free, v, x, y, solver) for v in vecs])
+            kernel, noise_free, v, x, y, solver, decomp) for v in vecs])
 
     def _run_local_opt(self, vec0, lb_v, ub_v):
         return fit(self.kernel, self._noise_free, self._x, self._ys,
                    vec0, lb_v, ub_v, max_evals=self._MAX_EVAL,
-                   solver=self.solver)
+                   solver=self.solver, decomp=self._DECOMP)
 
     def _update_posterior(self):
         hyp, f, invKys, ok = set_k(self.kernel, self._hyps, self._x,
@@ -330,15 +378,18 @@ class GP(GPBase):
     def _factors(self):
         return tuple(self._post[:-1])
 
+    def _inv_kys(self):
+        return self._post[-1]
+
     # -- prediction API (GP.h:104-119); tensors on the model's device --------
     def batch_predict(self, xs):
         self._require_trained()
         return predict(self.kernel, self._hyps, self._x, self._factors(),
-                       self._post[-1], self._as_batch(xs), self.solver)
+                       self._inv_kys(), self._as_batch(xs), self.solver)
 
     def batch_predict_y(self, xs):
         self._require_trained()
-        return predict_y(self.kernel, self._hyps, self._x, self._post[-1],
+        return predict_y(self.kernel, self._hyps, self._x, self._inv_kys(),
                          self._as_batch(xs))
 
     def batch_predict_s2(self, xs):
@@ -349,7 +400,7 @@ class GP(GPBase):
     def batch_predict_y_with_grad(self, xs):
         self._require_trained()
         return predict_y_with_grad(self.kernel, self._hyps, self._x,
-                                   self._post[-1], self._as_batch(xs))
+                                   self._inv_kys(), self._as_batch(xs))
 
     def batch_predict_s2_with_grad(self, xs):
         self._require_trained()
@@ -357,3 +408,95 @@ class GP(GPBase):
                                     self._factors(), self._as_batch(xs),
                                     self.solver)
 
+
+# --------------------------------------------------------------------------
+# Masked-capacity family (gp_tpu exact.py:1420-1606), for BucketedGP
+# --------------------------------------------------------------------------
+#
+# gp_tpu runs these over a fixed-capacity buffer whose live row count is a
+# traced scalar, so that adding a point re-runs the same compiled program;
+# the pad rows are identity-masked (K_pad = blockdiag(K, I), r_pad = 0),
+# which gives the live rows' NLL, gradient and posterior exactly.  The
+# port has no trace to keep: BucketedGP's objective, fit and predictions
+# are GP's over views of the live rows, and the functions here take
+# gp_tpu's arguments and compute on x_pad[:n_real] through the functions
+# above (K1, the blocked route with its K3 leaves, K2).  Only the
+# posterior factor keeps gp_tpu's capacity layout, blockdiag(L, I), so
+# that append_posterior_masked writes one row in place.  These print no
+# NLL breakdown, as gp_tpu's do not.
+
+def _masked_k(kernel: KernelSpec, chyp, x_pad, n_real: int):
+    """K0 over the buffer with identity pad rows and columns,
+    blockdiag(K(X, X), I): the layout of the capacity factor."""
+    x = x_pad[:n_real]
+    return eye_pad(kernel.k(chyp, x, x), x_pad.shape[0] - n_real)
+
+
+def nll_raw_masked(kernel: KernelSpec, hyp, x_pad, y_pad, n_real: int,
+                   solver: SolverSpec = CHOL):
+    """NLL over the first n_real rows of a buffer."""
+    return nll_raw(kernel, hyp, x_pad[:n_real], y_pad[:n_real], solver,
+                   decomp=False)
+
+
+def nll_vg_raw_masked(kernel: KernelSpec, hyp, x_pad, y_pad, n_real: int,
+                      blocked=None):
+    """nll_vg_raw over the first n_real rows of a buffer."""
+    return nll_vg_raw(kernel, hyp, x_pad[:n_real], y_pad[:n_real], blocked,
+                      decomp=False)
+
+
+def set_k_masked(kernel: KernelSpec, hyp, x_pad, y_pad, n_real: int,
+                 solver: SolverSpec = CHOL, max_tries: int = 64):
+    """set_k over the first n_real rows, returned in the buffer's layout:
+    (hyp', (blockdiag(L, I),), invKys zero-padded, ok), at the buffer's
+    row count.  The factor is copied into a buffer of its own (on the
+    blocked route chol.cholesky's L is a view of the panel-padded
+    factor)."""
+    cap = x_pad.shape[0]
+    hyp, f, invKys, ok = set_k(kernel, hyp, x_pad[:n_real],
+                               y_pad[:n_real], solver, max_tries)
+    pad = cap - n_real
+    return (hyp, tuple(eye_pad(a, pad) for a in f),
+            torch.cat([invKys, invKys.new_zeros(pad)]), ok)
+
+
+def append_posterior_masked(kernel: KernelSpec, hyp, x_pad, y_pad,
+                            n_old: int, L, x_new, y_new):
+    """The O(cap^2) posterior append: one new point enters the factor.
+
+    With L = blockdiag(L_real, I) at the buffer's size, appending the
+    point at row n_old writes one row of L:
+
+        l          = L_real^-1 k(X, x_new)
+        L[n_old, :] = [l, sqrt(k(x, x) + sn2 - |l|^2)]
+
+    then invKys is solved again over the raw targets (two triangular
+    solves), in place of set_k_masked's O(cap^3) refactorization.  The
+    three solves run over the whole (contiguous) buffer with the vectors
+    zero past the live rows, which leaves them zero there.  x_pad, y_pad
+    and L are written in place (gp_tpu returns updated copies).
+
+    Returns (x_pad, y_pad, L, invKys, ok); ok (a 0-d bool tensor) is False
+    when the pivot is not positive: the caller refactorizes."""
+    nc = kernel.num_hyp(x_pad.shape[1])
+    chyp = hyp[:nc]
+    cap = x_pad.shape[0]
+    x_pad[n_old] = x_new
+    y_pad[n_old] = y_new
+    kvec = L.new_zeros(cap)
+    kvec[:n_old] = kernel.k(chyp, x_new[None, :], x_pad[:n_old])[0]
+    l = solve_lower(L, kvec)                                # pads -> 0
+    knn = kernel.diag_k(chyp, x_new[None, :])[0] + hyp_sn2(hyp)
+    piv2 = knn - torch.dot(l, l)
+    ok = piv2 > 0
+    l[n_old] = torch.sqrt(torch.clamp(piv2, min=0.0))
+    # the row is written only with a positive pivot (on the device, no
+    # sync): otherwise L keeps its identity row, the old factor, for the
+    # caller's refactorization and for the model should that fail
+    L[n_old, :n_old + 1] = torch.where(ok, l[:n_old + 1],
+                                       L[n_old, :n_old + 1])
+    r = L.new_zeros(cap)
+    r[:n_old + 1] = y_pad[:n_old + 1] - hyp_mean(hyp)
+    invKys = solve_lower_t(L, solve_lower(L, r))
+    return x_pad, y_pad, L, invKys, ok

@@ -22,7 +22,8 @@ import torch
 
 from ..ops.chol import chol_logdet, chol_ok, chol_solve, library_cholesky
 from ..ops.chol import solve_lower
-from .base import hyp_mean, hyp_sn2
+from .base import (debug_decomp_enabled, debug_print_nll_decomp, hyp_mean,
+                   hyp_sn2)
 from .sparse import (SparseFns, SparseGPBase, eye_like, inf_nll, local_fit,
                      search_value, straight_through, value_and_grad,
                      zero_like)
@@ -34,7 +35,8 @@ from .sparse import predict_y, predict_y_with_grad  # noqa: F401 (gp_tpu API)
 # --------------------------------------------------------------------------
 
 def nll_raw(kernel, hyp, x, y, u, jitter):
-    """FITC::_calcNegLogProb (FITC.cpp:201-228); NaN/inf propagate."""
+    """FITC::_calcNegLogProb (FITC.cpp:201-228); NaN/inf propagate.
+    Under debug_decomp_enabled() prints gp_tpu's "fitc_nll" breakdown."""
     n, d = x.shape
     m = u.shape[0]
     nc = kernel.num_hyp(d)
@@ -64,7 +66,14 @@ def nll_raw(kernel, hyp, x, y, u, jitter):
                          r - Kxu @ chol_solve(LA, t1)) / sn2
     complexity = (chol_logdet(LA) - chol_logdet(Luu)
                   + torch.sum(torch.log(gamma)) + (n - m) * torch.log(sn2))
-    return 0.5 * (fit_term + complexity + n * math.log(2 * math.pi))
+    nlz = 0.5 * (fit_term + complexity + n * math.log(2 * math.pi))
+    if debug_decomp_enabled():
+        # gp_tpu's per-evaluation breakdown (fitc.py:68-74)
+        debug_print_nll_decomp(
+            "fitc_nll", nlz=nlz, data_fit=0.5 * fit_term,
+            complexity=0.5 * complexity,
+            norm_const=0.5 * n * math.log(2 * math.pi))
+    return nlz
 
 
 def nll(kernel, hyp, x, y, u, jitter):

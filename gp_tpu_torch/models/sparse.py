@@ -23,9 +23,7 @@ with their own autograd (the blocked route's K3 leaves have no backward).
 
 Not carried: `_use_hosted_opt` and `_run_local_opt_guarded` (gp_tpu's
 route around its TPU runtime's execution watchdog; the port's optimizer
-is a host loop already); the per-evaluation NLL breakdown that gp_tpu
-prints under GP_TPU_DEBUG=1 and GP_TPU_VERBOSE_OPT=1, as the port's exact
-GP does not carry it; and `train_distributed`, ROADMAP module 14.
+is a host loop already), and `train_distributed`, ROADMAP module 14.
 """
 
 from __future__ import annotations

@@ -30,7 +30,8 @@ import torch
 
 from ..ops.chol import chol_logdet, chol_ok, chol_solve, library_cholesky
 from ..ops.chol import solve_lower
-from .base import hyp_mean, hyp_sn2
+from .base import (debug_decomp_enabled, debug_print_nll_decomp, hyp_mean,
+                   hyp_sn2)
 from .sparse import (SparseFns, SparseGPBase, eye_like, inf_nll, local_fit,
                      search_value, straight_through, value_and_grad,
                      zero_like)
@@ -42,7 +43,8 @@ from .sparse import predict_y, predict_y_with_grad  # noqa: F401 (gp_tpu API)
 # --------------------------------------------------------------------------
 
 def nll_raw(kernel, hyp, x, y, u, jitter):
-    """VFE::_calcNegLogProb (VFE.cpp:161-189); NaN/inf propagate."""
+    """VFE::_calcNegLogProb (VFE.cpp:161-189); NaN/inf propagate.
+    Under debug_decomp_enabled() prints gp_tpu's "vfe_nll" breakdown."""
     n, d = x.shape
     m = u.shape[0]
     nc = kernel.num_hyp(d)
@@ -67,7 +69,13 @@ def nll_raw(kernel, hyp, x, y, u, jitter):
     # the trace of the Nystrom residual is >= 0 mathematically
     resid = torch.sum(kernel.diag_k(chyp, x)) - torch.sum(V * V)
     trace_term = 0.5 * torch.maximum(resid, zero_like(resid)) / sn2
-    return f0 + complexity + data_fit + trace_term
+    nlz = f0 + complexity + data_fit + trace_term
+    if debug_decomp_enabled():
+        # gp_tpu's per-evaluation breakdown (vfe.py:70-75)
+        debug_print_nll_decomp("vfe_nll", nlz=nlz, data_fit=data_fit,
+                               complexity=complexity, trace_term=trace_term,
+                               norm_const=f0)
+    return nlz
 
 
 def nll(kernel, hyp, x, y, u, jitter):

@@ -127,3 +127,11 @@ def solve_lower(L, b):
     z = torch.linalg.solve_triangular(L, b[:, None] if vec else b,
                                       upper=False)
     return z[:, 0] if vec else z
+
+
+def solve_lower_t(L, z):
+    """Solve L^T x = z (back substitution on the lower factor)."""
+    vec = z.ndim == 1
+    x = torch.linalg.solve_triangular(L.mT, z[:, None] if vec else z,
+                                      upper=True)
+    return x[:, 0] if vec else x

@@ -390,3 +390,86 @@ def test_kernel_keeps_nan_of_infinite_inverse_lengthscale(cuda, form, p1,
         assert torch.equal(torch.isnan(K), torch.isnan(P))
         fin = ~torch.isnan(P)           # 0 (sq = inf) or dvals
         assert torch.equal(K[fin], P[fin])
+
+
+def _bo_problem(n=640, d=5):
+    import numpy as np
+    rng = np.random.default_rng(5)
+    X = rng.uniform(-2, 2, (n, d))
+    y = np.sin(X[:, 0]) + 0.3 * X[:, 1] * X[:, 2] + 0.1 * rng.standard_normal(n)
+    return X, y
+
+
+def test_bucketed_absorb_card_matches_cpu(cuda):
+    """BucketedGP's O(N^2) absorb on the card against the CPU, float64,
+    N = 600 -> 605 (capacity 640): the factor buffer written in place, its
+    rows, invKys and the predictions at rtol 1e-10."""
+    import numpy as np
+    from gp_tpu_torch import BucketedGP
+    X, y = _bo_problem()
+    hyp = np.array([0.2, 0.4, 0.3, 0.5, 0.6, 0.1, np.log(0.1), 0.0])
+    models = {}
+    for dev in ("cuda", "cpu"):
+        m = BucketedGP(X[:600], y[:600], bucket=64, dtype=torch.float64,
+                       device=dev)
+        m._hyps = m._tensor(hyp)
+        m._update_posterior()
+        m._trained = True
+        L0 = m._post[0]
+        se_tile.reset_launches()
+        for i in range(600, 605):
+            m.absorb(X[i], y[i])
+        assert m._post[0] is L0 and m.num_train == 605
+        if dev == "cuda":
+            assert se_tile.launches["se_matrix"]["se"] == 5  # k(x_new, X)
+            assert se_tile.launches["se_matrix_diag"]["se"] == 0
+        models[dev] = m
+    c, h = models["cuda"], models["cpu"]
+    for a, b in zip(c._post, h._post):
+        assert torch.allclose(a.cpu(), b, rtol=1e-10,
+                              atol=1e-10 * float(b.abs().max()))
+    for a, b in zip(c.batch_predict(X[605:]), h.batch_predict(X[605:])):
+        assert torch.allclose(a.cpu(), b, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("model", ["GP", "BucketedGP", "FITC"])
+def test_checkpoint_moves_between_card_and_cpu(cuda, tmp_path, model):
+    """A checkpoint saved on the card loads on the CPU and the reverse,
+    float64, with the posterior bit for bit and predictions at 1e-10."""
+    import numpy as np
+    from gp_tpu_torch.utils.checkpoint import load_model
+    from gp_tpu_torch.utils.convert import gp_from_state
+    X, y = _bo_problem(200)
+    state = {"model": model, "x": X[:150], "y": y[:150], "dtype": "float64",
+             "hyps": np.array([0.2, 0.4, 0.3, 0.5, 0.6, 0.1, np.log(0.1),
+                               0.0]), "inducing": X[130:150], "bucket": 64}
+    for src, dst in (("cuda", "cpu"), ("cpu", "cuda")):
+        a = gp_from_state(state, device=src)
+        a.save(str(tmp_path / f"{src}.npz"))
+        b = load_model(str(tmp_path / f"{src}.npz"), device=dst)
+        assert b.device.type == dst and b.trained
+        for p, q in zip(a._post, b._post):
+            assert torch.equal(p.cpu(), q.cpu())
+        for p, q in zip(a.batch_predict(X[150:]), b.batch_predict(X[150:])):
+            assert torch.allclose(p.cpu(), q.cpu(), rtol=1e-10, atol=1e-12)
+
+
+def test_cli_on_the_card_and_with_cpu(cuda, tmp_path, monkeypatch):
+    """`gp` without --cpu runs on the card (K1 launched, float32), with
+    --cpu on the CPU; both write a finite pred."""
+    import numpy as np
+    from gp_tpu_torch import cli
+    from gp_tpu_torch.utils.io import read_matrix, write_matrix
+    X, y = _bo_problem(260)
+    write_matrix(str(tmp_path / "train_x"), X[:200])
+    write_matrix(str(tmp_path / "train_y"), y[:200])
+    write_matrix(str(tmp_path / "test_x"), X[200:])
+    monkeypatch.chdir(tmp_path)
+    for args in (["gp", "200"], ["gp", "200", "--cpu"],
+                 ["fitc", "200", "32"]):
+        se_tile.reset_launches()
+        assert cli.main(args) == 0
+        on_card = sum(sum(f.values()) for f in se_tile.launches.values())
+        assert (on_card > 0) == ("--cpu" not in args)
+        pred = read_matrix("pred")
+        assert pred.shape == (60, 2) and np.isfinite(pred).all()
