@@ -113,6 +113,18 @@ line:
   checkpoint save_model of the main path's GP and of bucketed_bo's model,
              load_model onto the card: seconds, bytes, the loaded models'
              predictions bit for bit the saved ones', no launch in the load
+  stream_at_golden  the stream regime (N >= 32768) at gp_tpu's N = 51200,
+             d = 10 configuration and its golden record's hyps: the f64
+             NLL against the record's f64 oracle, the f32 posterior's
+             refined NLL, both objective forms (seconds, peak memory,
+             gradients against the f64 tiled form), the route; K1 at
+             (51200, 51200) x 10 and K2 at its row tiles, in f32 and f64,
+             against their plain versions; launches by dtype
+  stream_fit GP(X, y).train() from the defaults at N = 51200 of the same
+             data (warm start, fit, posterior, refined NLL, the f64 NLL
+             beside it: an NLL beyond 1e-4 of it must come with
+             set_k_streamed's first-order warning), predictions of 2000
+             held-out rows, s2 with its gradient
   cli_gp, cli_fitc  train_x / train_y / test_x written by write_matrix,
              then `python -m gp_tpu_torch gp 8000` and `fitc 8000 512` as
              child processes (CLI_CHILD prints their launch counts): the
@@ -1415,6 +1427,52 @@ def _k2_record(torch, se_tile, x1, x2, inv_l, sf2) -> dict:
             "bound_ms": bound_ms, "bound_by": by}
 
 
+# rows of each plain K1 call in _k1_record: the whole plain K at once takes
+# ~3 N^2 words of temporaries (63 GB in float64 at N = 51200)
+K1_PLAIN_ROWS = 6400
+
+
+def _k1_record(torch, se_tile, x, inv_l, sf2, dvals) -> dict:
+    """K1 at x (n, d) in its dtype: its first and last 64 rows against the
+    plain version of those rows (dvals on the diagonal), each entry within
+    its rounding bound, as in phase_big_index; times back to back and
+    from a CUDA graph; the plain version's over all of K's rows, in calls
+    of K1_PLAIN_ROWS rows; the bound."""
+    n, d = x.shape
+    dtype = str(x.dtype).rsplit(".", 1)[-1]
+    kern = lambda: se_tile.se_matrix_diag(inv_l, sf2, x, dvals)
+    out = kern()
+    torch.cuda.synchronize()
+    errs, ratios = [], []
+    for rows in (torch.arange(64, device=x.device),
+                 torch.arange(n - 64, n, device=x.device)):
+        ref = se_tile.se_matrix_plain(inv_l, sf2, x[rows], x)
+        ref[torch.arange(64, device=x.device), rows] = dvals[rows]
+        bound = se_tile.rounding_bound(inv_l, sf2, x[rows], x, ref)
+        err = (out[rows] - ref).abs()
+        errs.append(float(err.max()))
+        ratios.append(float(torch.where(err == 0, 0.0, err / bound).max()))
+    del out
+    check(all(math.isfinite(r) and r <= 1.0 for r in ratios),
+          f"se_tile_diag {dtype} {n}x{n}x{d}: first/last 64 rows off by "
+          f"{ratios} times their rounding bound")
+
+    def plain():
+        for j in range(0, n, K1_PLAIN_ROWS):
+            b = min(K1_PLAIN_ROWS, n - j)
+            K = se_tile.se_matrix_plain(inv_l, sf2, x[j:j + b], x)
+            K[:, j:j + b].diagonal().copy_(dvals[j:j + b])
+    bound_ms, by = se_bound_ms(n, n, d, dtype, True)
+    rec = {"m": n, "n": n, "d": d, "dtype": dtype, "max_abs_err": max(errs),
+           "max_err_over_bound": ratios, "ms": cuda_ms(torch, kern, iters=5),
+           "device_ms": graph_ms(torch, kern, iters=5),
+           "plain_ms": cuda_ms(torch, plain, iters=2, warm=1),
+           "plain_rows_per_call": K1_PLAIN_ROWS,
+           "bound_ms": bound_ms, "bound_by": by}
+    torch.cuda.empty_cache()
+    return rec
+
+
 # Card-against-CPU gradient limits at each sparse model's fitted hyps, set
 # from scripts/sparse_sensitivity.py on the card at this path's N = 8000,
 # M = 512 (PERF.md §6): K2's entries moved by 2e-16 move FITC's gradient
@@ -1995,6 +2053,348 @@ def phase_cli(torch, Xtr, ytr, Xte, gp, fitc) -> dict:
     return out
 
 
+# The stream regime (models/exact.py, N >= 32768): gp_tpu's N = 51200,
+# d = 10 configuration (benchmarks/big_fit.py fit50k: make_data(51200,
+# d=10, seed=42), held out make_data(2000, 10, seed=7)) and its golden
+# record (never edited)
+STREAM_N, STREAM_D = 51200, 10
+STREAM_TEST_N, STREAM_TEST_SEED = 2000, 7
+STREAM_GRAD = 16
+GOLDEN_STREAM = "benchmarks/golden/tpu_fit_n51200_warm.json"
+# the golden record's parity targets: an independent NumPy/SciPy float64
+# evaluation at the recorded hyps (the oracle), gp_tpu's refined f32 NLL
+# against it, and the f32 objective's gradient against float64's
+ORACLE_F64_TOL, REFINED_F32_TOL, GRAD_F32_TOL = 1e-8, 1e-4, 1e-2
+# the two variance paths at the same rows: 8 float32 ulps of the prior
+S2_TOL = 8 * 2.0 ** -23
+
+
+def _leaves(n: int) -> int:
+    """K3 leaves of one blocked factorization at n rows."""
+    from gp_tpu_torch.ops.chol import _block_for
+    blk = _block_for(n)
+    return -(-n // blk) * blk // LEAF
+
+
+class tee_stderr:
+    """Copies what is written to stderr inside it into `text`, and still
+    writes it."""
+
+    def __enter__(self):
+        import io
+        self.buf, self.orig = io.StringIO(), sys.stderr
+        orig, buf = self.orig, self.buf
+
+        class Tee:
+            def write(self, s):
+                buf.write(s)
+                return orig.write(s)
+
+            def flush(self):
+                orig.flush()
+        sys.stderr = Tee()
+        return self
+
+    def __exit__(self, *exc):
+        sys.stderr = self.orig
+        self.text = self.buf.getvalue()
+
+
+def _rescue_steps(text: str) -> int:
+    """The rescue attempts set_k_streamed reported on stderr (0: none)."""
+    m = re.search(r"set_k_streamed: noise raised .*?\((\d+) rescue", text)
+    return int(m.group(1)) if m else 0
+
+
+def _left_out(text: str):
+    """What set_k_streamed's first-order warning on stderr says the refined
+    NLL leaves out, tr(E^2) / 4 (None: no warning)."""
+    m = re.search(r"set_k_streamed: the refined NLL \S+ may be off by "
+                  r"~(\S+) ", text)
+    return float(m.group(1)) if m else None
+
+
+def _stream_eval(torch, fn, gp, hyp) -> dict:
+    """One objective evaluation fn(kernel, hyp_std, x, ys) of `gp` at the
+    original-units hyp: value, gradient (float64, on the host), synced
+    seconds and the bytes it added at its peak, also in words of N^2."""
+    h = gp._tensor(gp._hyp_to_std(hyp))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    f, g = fn(gp.kernel, h, gp._x, gp._ys)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    n, size = gp.num_train, torch.finfo(gp.dtype).bits // 8
+    return {"f": float(f), "g": g.double().cpu(), "s": secs,
+            "peak_gb": peak / 1e9, "words_n2": peak / (n * n * size)}
+
+
+def phase_stream_at_golden(torch) -> dict:
+    """The stream regime at gp_tpu's golden N = 51200 record's hyps: the
+    float64 nll_raw against the oracle (ORACLE_F64_TOL); the float32
+    set_k_streamed (the posterior), its refined NLL against the oracle
+    (REFINED_F32_TOL), its rescue steps and the raw f32 NLL beside it; one
+    f32 objective evaluation in each form (nll_vg_raw, dense, and
+    nll_vg_streamed, tiled), twice: seconds, peak memory, value and
+    gradient against each other; the tiled form in float64 as the oracle
+    of the f32 gradients (GRAD_F32_TOL of its largest entry); the form
+    objective_vg picks in each dtype; the dense form's measured words of
+    N^2 within the route's estimate (exact._DENSE_VG_WORDS); K1 at the
+    model's build and K2 at the row tiles' shape, in each dtype, against
+    their plain versions (_k1_record, _k2_record).  Every K1 build is
+    factored once (400 K3 leaves, all by the register kernel); launches
+    are counted by dtype.  Also reported: what set_k_streamed's
+    first-order warning says the refined NLL leaves out (None: no
+    warning)."""
+    import numpy as np
+    from gp_tpu_torch import GP
+    from gp_tpu_torch.models import exact
+    from gp_tpu_torch.models.sparse import hbm_budget_bytes
+    from gp_tpu_torch.ops import chol_block, se_tile
+    from gp_tpu_torch.utils.synth import make_data
+
+    with open(os.path.join(ROOT, GOLDEN_STREAM)) as fh:
+        golden = json.load(fh)
+    oracle = golden["oracle_f64_nll"]
+    hyp = np.asarray(golden["hyp"], np.float64)
+    X, y = make_data(STREAM_N, d=STREAM_D, seed=SEED)
+    torch.cuda.empty_cache()
+    se_tile.reset_launches()
+    chol_block.reset_launches()
+    res = {"n": STREAM_N, "d": STREAM_D, "oracle_f64_nll": oracle,
+           "golden_log_sn": float(hyp[-2]),
+           "budget_gb": hbm_budget_bytes(torch.device("cuda")) / 1e9}
+
+    gp64 = GP(X, y, dtype="float64")
+    t0 = time.perf_counter()
+    nll64 = gp64.nll(hyp)
+    res["nll_f64_s"] = time.perf_counter() - t0
+    launches64 = _counts(se_tile, chol_block)
+    res["nll_f64"] = nll64
+    res["nll_f64_rel"] = abs(nll64 - oracle) / abs(oracle)
+
+    gp32 = GP(X, y)
+    t0 = time.perf_counter()
+    with tee_stderr() as err:
+        h, aux, invkys = exact.set_k_streamed(gp32.kernel, gp32._tensor(hyp),
+                                              gp32._x, gp32._y)
+        torch.cuda.synchronize()
+    res["set_k_streamed_s"] = time.perf_counter() - t0
+    res["rescue_steps"] = _rescue_steps(err.text)
+    res["posterior_log_sn"] = float(h[-2])
+    res["refined_nll_f32"] = aux["nll_refined"]
+    res["refined_rel"] = abs(aux["nll_refined"] - oracle) / abs(oracle)
+    res["first_order_left_out"] = _left_out(err.text)
+    res["raw_nll_f32"] = gp32.nll(hyp)
+    res["raw_rel"] = abs(res["raw_nll_f32"] - oracle) / abs(oracle)
+    del invkys
+
+    forms = {"dense_f32": (gp32, exact.nll_vg_raw),
+             "tiled_f32": (gp32, exact.nll_vg_streamed),
+             "tiled_f64": (gp64, exact.nll_vg_streamed)}
+    evals = {}
+    for label, (gp, fn) in forms.items():
+        before = _counts(se_tile, chol_block)
+        runs = [_stream_eval(torch, fn, gp, hyp)
+                for _ in range(1 if label == "tiled_f64" else 2)]
+        if gp is gp64:
+            launches64 = _plus(launches64, _since(
+                before, _counts(se_tile, chol_block)))
+        evals[label] = runs[-1]
+        res[label] = {"s_per_eval": [r["s"] for r in runs],
+                      "peak_gb": runs[-1]["peak_gb"],
+                      "words_n2": runs[-1]["words_n2"],
+                      "value": runs[-1]["f"]}
+    g64 = evals["tiled_f64"]["g"]
+    scale = float(g64.abs().max())
+    for label in ("dense_f32", "tiled_f32"):
+        e = evals[label]
+        res[label]["grad_gap_vs_f64"] = float((e["g"] - g64).abs().max()) \
+            / scale
+        res[label]["value_gap_vs_f64"] = abs(e["f"] - evals["tiled_f64"]
+                                             ["f"]) / abs(evals["tiled_f64"]
+                                                          ["f"])
+    res["dense_vs_tiled_f32"] = {
+        "value_rel": abs(evals["dense_f32"]["f"] - evals["tiled_f32"]["f"])
+        / abs(evals["tiled_f32"]["f"]),
+        "grad_over_f64_max": float((evals["dense_f32"]["g"]
+                                    - evals["tiled_f32"]["g"]).abs().max())
+        / scale}
+    res["route"] = {dt: "tiled" if exact.use_streamed_vg(gp.kernel, gp._x)
+                    else "dense" for dt, gp in (("float32", gp32),
+                                                ("float64", gp64))}
+    res["route_words_estimate"] = exact._DENSE_VG_WORDS
+    total = _counts(se_tile, chol_block)
+    launches = {"float32": _since(launches64, total), "float64": launches64}
+    res["launches"] = launches
+    # K1 at the model's build, K2 at the refinement sweep's and the tiled
+    # gradient's row tiles, in each dtype
+    res["k1"], res["k2_tile"] = {}, {}
+    for dt, gp in (("float32", gp32), ("float64", gp64)):
+        x, h = gp._x, gp._tensor(hyp)
+        inv_l = torch.exp(-h[:STREAM_D])
+        sf2 = torch.exp(2.0 * h[STREAM_D])
+        dvals = torch.full((STREAM_N,), float(sf2 + torch.exp(2.0 * h[-2])),
+                           dtype=x.dtype, device=x.device)
+        res["k1"][dt] = _k1_record(torch, se_tile, x, inv_l, sf2, dvals)
+        res["k2_tile"][dt] = _k2_record(torch, se_tile, x[:2048], x, inv_l,
+                                        sf2)
+    emit("stream_at_golden", **res)
+
+    check(res["nll_f64_rel"] <= ORACLE_F64_TOL,
+          f"f64 NLL {nll64} against the oracle {oracle}: "
+          f"{res['nll_f64_rel']} beyond {ORACLE_F64_TOL}")
+    check(res["refined_rel"] <= REFINED_F32_TOL,
+          f"f32 refined NLL {aux['nll_refined']} against the oracle "
+          f"{oracle}: {res['refined_rel']} beyond {REFINED_F32_TOL}")
+    for label in ("dense_f32", "tiled_f32"):
+        gap = res[label]["grad_gap_vs_f64"]
+        check(math.isfinite(gap) and gap <= GRAD_F32_TOL,
+              f"{label} gradient {gap} of the f64 gradient's largest entry "
+              f"from it, beyond {GRAD_F32_TOL}")
+    check(res["route"] == {"float32": "dense", "float64": "tiled"},
+          f"objective_vg's route at N = {STREAM_N}: {res['route']}")
+    est = exact._DENSE_VG_WORDS["se"]
+    check(res["dense_f32"]["words_n2"] <= est,
+          f"the dense objective took {res['dense_f32']['words_n2']} words "
+          f"of N^2, beyond the route's estimate {est}")
+    for dt, n in launches.items():
+        check(n["k1"] > 0 and n["k2"] > 0
+              and n["k3"] == _leaves(STREAM_N) * n["k1"] and n["other"] == 0,
+              f"stream_at_golden {dt}: every K1 build factored once by "
+              f"{_leaves(STREAM_N)} register leaves, K2 in the sweeps: {n}")
+    del gp64, gp32
+    torch.cuda.empty_cache()
+    return {"launches": launches, "k1": res["k1"], "k2": res["k2_tile"]}
+
+
+def phase_stream_fit(torch) -> dict:
+    """GP(X, y).train() in the stream regime from the defaults, float32,
+    at STREAM_N rows of the stream configuration's data: the subset-
+    MLE warm start (m = 8192), the fit, the posterior (set_k_streamed:
+    the rescue steps, the refined NLL that train() returns); then
+    batch_predict of the 2000 held-out rows (it refactors: RMSE below 0.6
+    of the constant predictor's) and batch_predict_s2_with_grad of 16 of
+    them (finite).  The launch counts are set to 0 just before the model
+    is built and read after those predictions.  Then the checks, their
+    launches counted apart: batch_predict of the same 16 rows, whose s2
+    must equal batch_predict_s2_with_grad's within S2_TOL of the prior
+    variance sf2 + sn2 (the same factor, K2 rows and solve; across batch
+    sizes the solve's f32 rounding moves s2 by ~1e-4 of it), and the f64
+    NLL at the fitted hyps beside the refined one: beyond
+    REFINED_F32_TOL of it, set_k_streamed must have warned that its
+    refined NLL is first order.  Also reported:
+    whether the fit entered the global search, and c = sn2 / (N eps
+    mean(sf2)), where the fitted noise sits against the f32 conditioning
+    floor."""
+    import numpy as np
+    from gp_tpu_torch import GP
+    from gp_tpu_torch.ops import chol_block, se_tile
+    from gp_tpu_torch.optim.lbfgsb import explain_result
+    from gp_tpu_torch.utils.synth import make_data
+
+    X, y = make_data(STREAM_N, d=STREAM_D, seed=SEED)
+    Xte, yte = make_data(STREAM_TEST_N, d=STREAM_D, seed=STREAM_TEST_SEED)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    se_tile.reset_launches()
+    chol_block.reset_launches()
+    gp = GP(X, y)
+    check(gp._in_stream_regime(), f"GP at N = {STREAM_N} is not in "
+          f"the stream regime")
+    secs = {}
+
+    def timed(name):
+        fn = getattr(gp, name)
+
+        def run(*a):
+            t = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t
+            return out
+        setattr(gp, name, run)
+    for name in ("_warm_start_hyps", "_run_local_opt", "_update_posterior"):
+        timed(name)
+    t0 = time.perf_counter()
+    with tee_stderr() as err:
+        nll = gp.train()
+        torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches_train = _counts(se_tile, chol_block)
+    evals = int(gp.last_opt_result.evals)
+    t0 = time.perf_counter()
+    mu, s2 = gp.batch_predict(Xte)
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s2g, gs2 = gp.batch_predict_s2_with_grad(Xte[:STREAM_GRAD])
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    launches = _counts(se_tile, chol_block)
+
+    _, s2_16 = gp.batch_predict(Xte[:STREAM_GRAD])
+    hyp = gp.get_hyp()
+    prior = float(np.exp(2 * hyp[STREAM_D]) + np.exp(2 * hyp[-2]))
+    s2_gap = float((s2g - s2_16).abs().max()) / prior
+    s2_gap_2000 = float((s2g - s2[:STREAM_GRAD]).abs().max()) / prior
+    nll64 = GP(X, y, dtype="float64").nll(hyp)
+    check_launches = _since(launches, _counts(se_tile, chol_block))
+    rmse = _rmse(mu.cpu().numpy(), yte)
+    rmse_const = _rmse(np.full_like(yte, y.mean()), yte)
+    eps32 = float(torch.finfo(torch.float32).eps)
+    res = {"n": STREAM_N, "d": STREAM_D, "nll": nll,
+           "nll_is_refined": nll == gp._post_aux["nll_refined"],
+           "nll_f64_at_fit": nll64,
+           "refined_rel_to_f64": abs(nll - nll64) / abs(nll64),
+           "evals": evals, "status": explain_result(gp.last_opt_result),
+           "entered_search": gp.last_search is not None,
+           "warm_start_s": secs.get("_warm_start_hyps"),
+           "fit_s": secs["_run_local_opt"],
+           "s_per_eval": secs["_run_local_opt"] / evals,
+           "posterior_s": secs["_update_posterior"], "train_s": train_s,
+           "rescue_steps": _rescue_steps(err.text),
+           "first_order_left_out": _left_out(err.text),
+           "c_floor": float(np.exp(2 * hyp[-2]) / (
+               STREAM_N * eps32 * np.exp(2 * hyp[STREAM_D]))),
+           "hyp": hyp.tolist(),
+           "predict_2000_s": predict_s, "s2_with_grad_16_s": grad_s,
+           "rmse": rmse, "rmse_const": rmse_const,
+           "s2_gap_over_prior": s2_gap,
+           "s2_gap_over_prior_vs_2000_rows": s2_gap_2000,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches_train": launches_train, "launches": launches,
+           "check_launches": check_launches}
+    emit("stream_fit", **res)
+    check(math.isfinite(nll) and res["nll_is_refined"],
+          f"train() returned {nll}, not the posterior's refined NLL")
+    check(res["refined_rel_to_f64"] <= REFINED_F32_TOL
+          or res["first_order_left_out"] is not None,
+          f"train()'s refined NLL {nll} is {res['refined_rel_to_f64']} from "
+          f"the f64 NLL {nll64}, beyond {REFINED_F32_TOL}, and "
+          f"set_k_streamed did not warn that it is first order")
+    check(bool(torch.isfinite(mu).all() and torch.isfinite(s2).all()
+               and torch.isfinite(s2g).all() and torch.isfinite(gs2).all()),
+          "stream_fit: non-finite predictions")
+    check(tuple(gs2.shape) == (STREAM_GRAD, STREAM_D), "gradient shape")
+    check(rmse < 0.6 * rmse_const, f"stream_fit: held-out RMSE {rmse} not "
+          f"below 0.6 of the constant predictor's {rmse_const}")
+    check(s2_gap <= S2_TOL, f"batch_predict_s2_with_grad's s2 {s2_gap} of "
+          f"the prior variance from batch_predict's, beyond {S2_TOL}")
+    check(launches_train["k1"] >= evals and launches["k2"] > 0
+          and launches["k3"] >= _leaves(STREAM_N) * evals
+          and launches["other"] == 0,
+          f"stream_fit: K1 a build per evaluation, K2, K3 by its register "
+          f"kernel only: {launches} for {evals} evaluations")
+    del gp
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2049,6 +2449,8 @@ def main() -> int:
                                  "bucketed_bo": bucketed["model"]}, Xte)
         cli = phase_cli(torch, Xtr, ytr, Xte, paths["se_ard"]["gp"],
                         sparse["FITC"]["model"])
+        stream = {"stream_at_golden": phase_stream_at_golden(torch),
+                  "stream_fit": phase_stream_fit(torch)}
         src = "gp_tpu_torch/csrc/se_tile.cu"
         kernels = []
         for kernel, path in paths.items():
@@ -2189,6 +2591,31 @@ def main() -> int:
             "se_tile", src, "gp_tpu/ops/pallas_kernels.py:71", rec, n2,
             "cli_fitc", device_ms=rec["device_ms"], form="se",
             shape=[rec["m"], rec["n"], rec["d"]], dtype="float64"))
+        # the stream regime, by dtype (stream_fit runs in float32): K1's
+        # times at its (51200, 51200) x 10 build, K2's at the row tiles'
+        # (2048, 51200) x 10, K3's at b = 128
+        golden = stream["stream_at_golden"]
+        fit = {"float32": stream["stream_fit"]["launches"]}
+        for label, by_dtype in (("stream_at_golden", golden["launches"]),
+                                ("stream_fit", fit)):
+            for dt, n in by_dtype.items():
+                check(n["k1"] > 0 and n["k2"] > 0 and n["k3"] > 0,
+                      f"K1, K2 or K3 not launched on {label} ({dt})")
+                rec1, rec2 = golden["k1"][dt], golden["k2"][dt]
+                rec3 = chol_timed[("chol_inv", dt, LEAF, None)]
+                kernels.append(row(
+                    "se_tile_diag", src, "gp_tpu/ops/pallas_kernels.py:89",
+                    rec1, n["k1"], label, device_ms=rec1["device_ms"],
+                    form="se", shape=[rec1["m"], rec1["n"], rec1["d"]],
+                    dtype=dt))
+                kernels.append(row(
+                    "se_tile", src, "gp_tpu/ops/pallas_kernels.py:71", rec2,
+                    n["k2"], label, device_ms=rec2["device_ms"], form="se",
+                    shape=[rec2["m"], rec2["n"], rec2["d"]], dtype=dt))
+                kernels.append(row(
+                    "chol_inv", chol_src, "gp_tpu/ops/pallas_chol.py:180",
+                    rec3, n["k3"], label, design="chol_inv_reg",
+                    shape=[LEAF, LEAF], dtype=dt, library=rec3["library"]))
     except CheckFailed as exc:
         print(f"chip_smoke: check failed: {exc}", file=sys.stderr)
         return 1

@@ -205,6 +205,7 @@ class GPBase:
         self.draws = GeneratorDraws(seed)
         self.last_search = None      # (best f, evaluations) of the search
         self._post = None            # posterior cache: (*factors, invKys)
+        self._post_aux = None        # stream-regime scalars (logdet, nll)
 
     def _tensor(self, a):
         """a (numpy, list or tensor) on the model's device and dtype."""
@@ -336,9 +337,20 @@ class GPBase:
     def _warm_start_hyps(self):
         """Optional model-specific start tried before the noise rescue
         when the initial probe is INF or the defaults were used (None =
-        skip).  gp_tpu's exact GP uses it only in the stream regime
-        (ROADMAP module 11)."""
+        skip).  The exact GP's is the subset MLE, in the stream regime
+        only (GP._warm_start_hyps)."""
         return None
+
+    def _nll_from_posterior(self):
+        """The final NLL from the cached posterior, or None for a fresh
+        nll() evaluation (gp_tpu base.py:331-339).  The exact GP's stream
+        regime returns the refined NLL that its posterior computed."""
+        return None
+
+    def _final_nll(self) -> float:
+        """train()'s return value, on both its exits."""
+        v = self._nll_from_posterior()
+        return v if v is not None else self.nll(self._hyps)
 
     # -- shared pipeline (GP.cpp:183-272) ------------------------------------
     def nll(self, hyp=None) -> float:
@@ -412,7 +424,11 @@ class GPBase:
         return self.nll(self._hyps)
 
     def train(self, init_hyps=None) -> float:
-        """MLE fit; returns the final NLL (GP::train contract)."""
+        """MLE fit; returns the final NLL (GP::train contract).  In an exact
+        GP's stream regime that is the posterior's refined NLL
+        (_nll_from_posterior), first order in the factor's error: below
+        the float32 conditioning floor it is not accurate, and
+        set_k_streamed warns (models/exact.py)."""
         used_defaults = init_hyps is None
         if init_hyps is None:
             init_hyps = self.get_default_hyps()
@@ -457,7 +473,7 @@ class GPBase:
         if self._fixhyps:
             self._update_posterior()
             self._trained = True
-            return self.nll(self._hyps)
+            return self._final_nll()
 
         # optimize in the standardized space; the optimizer state stays in
         # the model dtype (an f64-state / f32-objective mix lets the line
@@ -480,7 +496,7 @@ class GPBase:
 
         self._update_posterior()
         self._trained = True
-        return self.nll(self._hyps)
+        return self._final_nll()
 
     def check_gradients(self, hyp=None, eps: float = 1e-3):
         """Analytic-vs-finite-difference NLL gradient check

@@ -27,6 +27,11 @@ The posterior factor keeps gp_tpu's layout: a (capacity x capacity)
 buffer blockdiag(L, I), so that absorb writes one row in place instead
 of reallocating the factor (256 MB per observation at N = 8000 in f32),
 and so that a checkpoint's factor is gp_tpu's.
+
+Not carried: BucketedGP in the stream regime (N >= 32768).  Its absorb
+appends to the N^2 factor that the stream regime never keeps, and
+gp_tpu's masked family has no stream form (it runs its dense programs
+at any N), so a BucketedGP of that size raises; GP serves that N.
 """
 
 from __future__ import annotations
@@ -35,7 +40,16 @@ import numpy as np
 import torch
 
 from .base import _np
-from .exact import GP, _check_n, append_posterior_masked, set_k_masked
+from . import exact
+from .exact import GP, append_posterior_masked, set_k_masked
+
+
+def _check_n(n: int) -> None:
+    if n >= exact._STREAM_MIN_N:
+        raise NotImplementedError(
+            f"BucketedGP at N={n} >= {exact._STREAM_MIN_N} rows is not "
+            f"carried (its absorb needs the N^2 factor that the stream "
+            f"regime does not keep); use GP")
 
 
 def _pad_rows(a, cap: int):
@@ -52,6 +66,7 @@ class BucketedGP(GP):
 
     def __init__(self, train_x, train_y, bucket: int = 64, **kw):
         super().__init__(train_x, train_y, **kw)
+        _check_n(self.num_train)
         self._bucket = int(bucket)
         self._refresh_buffers()
 

@@ -28,42 +28,63 @@ nll_raw and nll_vg_raw print gp_tpu's per-evaluation NLL breakdown; off,
 they add no host sync.  The masked family at the end of the module
 (BucketedGP's) computes on the live rows of a capacity buffer.
 
-Not ported here: the stream regime (N >= 32768: nll_vg_streamed,
-set_k_streamed and the factor-as-temp predictions) is ROADMAP module 11,
-and any N at or past that raises NotImplementedError; gp_tpu's far-pad
-decoy branch (exact.py:218-309) avoids XLA:TPU's pad and slice costs and
-is not carried: every spec pads once instead; the distributed layer is
-module 14.
+The stream regime (N >= _STREAM_MIN_N = 32768 rows, gp_tpu's
+exact.py:363-1139) decides gp_tpu's values at that size, and the port
+returns them:
+
+  objective   nll_vg_raw where its footprint fits the card
+              (_dense_vg_bytes against sparse.hbm_budget_bytes), else
+              nll_vg_streamed: L, T = L^-1, and per column tile of K^-1
+              = T^T T[:, I] the vjp of K2's rows k(x_I, X).  Both give
+              gp_tpu's value and gradient; the choice is a route of the
+              port, as chol._BLOCKED_MIN_N is (gp_tpu always tiles there);
+  posterior   set_k_streamed: gp_tpu's additive conditioning-floor rescue
+              before the sqrt(10) ladder, each attempt with the refined
+              NLL (one iterative-refinement step on alpha, a Hutchinson
+              correction of the logdet); the cache is (invKys,) and the
+              scalars in _post_aux, no factor;
+  prediction  variance predictions refactor at the model's hyps
+              (predict_streamed, predict_s2_with_grad_streamed); mean
+              predictions read the cached invKys;
+  train       a default start probes the subset-MLE warm start
+              (GP.subset_init_hyps), and train() returns the refined NLL
+              of the posterior (GP._nll_from_posterior).
+
+Not carried from the stream regime, each an XLA:TPU or TPU-runtime
+mechanism the card does not share: the column slabs (ops/slabbed.py,
+XLA:TPU's int32 single-buffer wall; K1-K3 index in int64), the
+per-tile K build into one carry (_build_k_noise_tiled, a layout copy of
+XLA's; K1 builds K + sn2 I in one launch), and the hosted optimizer and
+search (lbfgsb_hosted, mvmo_search_hosted, multistart_lbfgsb_hosted, the
+TPU runtime's watchdog: lbfgsb_impl and the search already run one
+evaluation per host step).  Nor are gp_tpu's far-pad decoy branch
+(exact.py:218-309), which avoids XLA:TPU's pad and slice costs (every
+spec pads once instead), and the distributed layer (module 14).
 """
 
 from __future__ import annotations
 
 import math
+import sys
 
+import numpy as np
 import torch
 
-from ..config import DEFAULT_SEED, INF
-from ..ops.blocked import add_diag, eye_pad
-from ..ops.chol import (chol_logdet, factor_and_inverse, solve_lower,
-                        solve_lower_t)
+from ..config import INF
+from ..ops.blocked import add_diag, eye_pad, tri_inv
+from ..ops.chol import (chol_logdet, chol_ok, chol_solve, cholesky,
+                        factor_and_inverse, solve_lower, solve_lower_t)
 from ..ops.kernels import KernelSpec, get_k_noise
 from ..ops.solvers import CHOL, SolverSpec
 from ..optim.lbfgsb import lbfgsb_impl
-from .base import (GPBase, debug_decomp_enabled, debug_print_nll_decomp,
+from .base import (GPBase, _np, debug_decomp_enabled, debug_print_nll_decomp,
                    from_opt_vec, hyp_mean, hyp_sn2, sanitize_value_and_grad,
                    to_opt_vec)
 
-# Row count from which gp_tpu switches to its memory-streamed objective
-# and posterior (exact.py:38-41), which compute a refined NLL.
+# Row count from which gp_tpu switches to its stream regime
+# (exact.py:38-41): the refined NLL, the additive posterior rescue and
+# the factor-free posterior.  It decides values, not memory.
 _STREAM_MIN_N = 32768
-
-
-def _check_n(n: int) -> None:
-    if n >= _STREAM_MIN_N:
-        raise NotImplementedError(
-            f"N={n} >= {_STREAM_MIN_N} is gp_tpu's stream regime "
-            f"(refined NLL, streamed posterior), ROADMAP module 11; it is "
-            f"not ported yet")
 
 
 def _half_n_log_2pi(n: int) -> float:
@@ -77,7 +98,6 @@ def _half_n_log_2pi(n: int) -> float:
 def _nll_terms(kernel: KernelSpec, hyp, x, y, solver: SolverSpec):
     """(data_fit, half_logdet, norm_const) of the NLL at hyp."""
     n = x.shape[0]
-    _check_n(n)
     nc = kernel.num_hyp(x.shape[1])
     r = y - hyp_mean(hyp)
     K = get_k_noise(kernel)(hyp[:nc], hyp_sn2(hyp), x, n)
@@ -131,17 +151,23 @@ def nll_vg_raw(kernel: KernelSpec, hyp, x, y, blocked=None,
     sanitizes).  Cholesky only.  No host sync: every scalar stays on the
     device, unless debug_decomp_enabled(), which prints gp_tpu's "nll_vg"
     breakdown (exact.py:198-202); decomp=False keeps it silent, as
-    nll_raw's."""
-    value, grad, terms = _nll_vg_terms(kernel, hyp, x, y, blocked)
+    nll_raw's.
+
+    From _STREAM_MIN_N rows on it gives gp_tpu's stream-regime values,
+    those of nll_vg_streamed: alpha by chol_solve(L, r), not by K^-1 r
+    (in float32 at N = 51200 the explicit inverse's matvec moves the NLL
+    by 1.6e-3 relative and the gradient by 1.2e-2 of its largest entry,
+    chip_smoke.py's stream_at_golden), and the "nll_vg_streamed" tag."""
+    stream = x.shape[0] >= _STREAM_MIN_N
+    value, grad, terms = _nll_vg_terms(kernel, hyp, x, y, blocked, stream)
     if decomp and debug_decomp_enabled():
-        _print_decomp("nll_vg", *terms)
+        _print_decomp("nll_vg_streamed" if stream else "nll_vg", *terms)
     return value, grad
 
 
-def _nll_vg_terms(kernel: KernelSpec, hyp, x, y, blocked):
+def _nll_vg_terms(kernel: KernelSpec, hyp, x, y, blocked, stream: bool):
     """(value, grad, (data_fit, half_logdet, norm_const)) of nll_vg_raw."""
     n = x.shape[0]
-    _check_n(n)
     nc = kernel.num_hyp(x.shape[1])
     chyp = hyp[:nc]
     sn2 = hyp_sn2(hyp)
@@ -154,8 +180,9 @@ def _nll_vg_terms(kernel: KernelSpec, hyp, x, y, blocked):
     K = K_build.detach()
     L, Kinv = factor_and_inverse(K, blocked)
     r = y - hyp_mean(hyp)
-    # alpha from the (already needed) explicit inverse: one matvec
-    alpha = Kinv @ r
+    # gp_tpu's dense form takes alpha from the (already needed) explicit
+    # inverse, one matvec; its stream regime solves with the factor
+    alpha = chol_solve(L, r) if stream else Kinv @ r
     terms = (0.5 * torch.dot(r, alpha), 0.5 * chol_logdet(L),
              _half_n_log_2pi(n))
     value = terms[0] + terms[1] + terms[2]
@@ -175,17 +202,287 @@ def _nll_vg_terms(kernel: KernelSpec, hyp, x, y, blocked):
     return value, grad, terms
 
 
+# --------------------------------------------------------------------------
+# Stream regime (gp_tpu exact.py:363-946)
+# --------------------------------------------------------------------------
+
+# Words of N^2 (in the data's dtype) that nll_vg_raw adds at its peak, by
+# kernel family, a little above torch.cuda.max_memory_allocated over one
+# evaluation on an H100 (scripts/stream_bench.py at N = 16384: SE 4.176,
+# Matern-5/2 8.000, Matern-3/2 6.001, RQ 7.000, the same in float32 and
+# float64; chip_smoke.py's stream_at_golden checks SE's at N = 51200).
+# SE contracts its gradient (K, L, T and K^-1 live while the lauum
+# inverse runs); the others take the vjp of the K1 build at Q, whose
+# backward holds N^2 temporaries beside K and Q.  A family not listed
+# takes the largest.
+_DENSE_VG_WORDS = {"se": 4.2, "matern52": 8.1, "matern32": 6.1, "rq": 7.1}
+
+
+def _dense_vg_bytes(kernel: KernelSpec, n: int, dtype) -> int:
+    """nll_vg_raw's estimated peak at n rows."""
+    words = _DENSE_VG_WORDS.get(kernel.name.split("_")[0],
+                                max(_DENSE_VG_WORDS.values()))
+    return int(words * n * n * (torch.finfo(dtype).bits // 8))
+
+
+def use_streamed_vg(kernel: KernelSpec, x) -> bool:
+    """Whether objective_vg takes nll_vg_streamed: in the stream regime,
+    where nll_vg_raw's estimated peak exceeds the device's budget
+    (sparse.hbm_budget_bytes: GP_TPU_HBM_BYTES, else 0.75 of the card's
+    memory, 12 GiB on the CPU).  A route of the port, like
+    chol._BLOCKED_MIN_N: gp_tpu tiles at every stream N (exact.py:599-606)
+    because its 16 GB chip holds no dense form there.  Both forms give
+    gp_tpu's values; the dense one is the faster (an SE evaluation at
+    N = 51200 in float32 on an H100: 3.9 s at 4.1 words of N^2 against
+    5.6 s at 2.1, chip_smoke.py's stream_at_golden)."""
+    from .sparse import hbm_budget_bytes
+    n = x.shape[0]
+    return (n >= _STREAM_MIN_N and _dense_vg_bytes(kernel, n, x.dtype)
+            > hbm_budget_bytes(x.device))
+
+
+def _snap_tile(n: int, tile: int) -> int:
+    """gp_tpu's tile snapping (exact.py:487-496): the largest power of two
+    from 2048 down to 64 below `tile` that divides n, else tile."""
+    if n % tile:
+        for t in (2048, 1024, 512, 256, 128, 64):
+            if t < tile and n % t == 0:
+                return t
+    return tile
+
+
+def _factor_k_noise(kernel: KernelSpec, hyp, x):
+    """The Cholesky factor of K + sn2 I: the K1 build, then chol.cholesky
+    (the blocked route with K3 leaves on the card).  K is freed once it is
+    factored, so the peak is two N^2 buffers."""
+    nc = kernel.num_hyp(x.shape[1])
+    return cholesky(get_k_noise(kernel)(hyp[:nc], hyp_sn2(hyp), x,
+                                        x.shape[0]))
+
+
+def rademacher_probes(n: int, probes: int, seed: int, dtype, device):
+    """(n, probes) Rademacher signs for the logdet correction, drawn on the
+    CPU from a torch.Generator seeded with `seed` and then moved, so that
+    the CPU and the card draw the same probes.  gp_tpu draws
+    jax.random.bernoulli(PRNGKey(seed), 0.5, (n, probes)), which torch
+    cannot reproduce: _refined_terms takes such draws as `z`."""
+    g = torch.Generator().manual_seed(int(seed))
+    z = torch.randint(0, 2, (n, probes), generator=g, dtype=torch.int8)
+    return (2 * z - 1).to(device=device, dtype=dtype)
+
+
+def _k_dot_streamed(kernel: KernelSpec, chyp, x, sn2, B,
+                    tile: int = 2048):
+    """(K + sn2 I) @ B without forming K: K2 row tiles k(x_I, X) of `tile`
+    rows (the last one ragged), each multiplied into B (gp_tpu
+    exact.py:363-377)."""
+    n = x.shape[0]
+    out = torch.empty_like(B)
+    for j in range(0, n, tile):
+        rows = kernel.k(chyp, x[j:j + tile], x)
+        out[j:j + tile] = rows @ B + sn2 * B[j:j + tile]
+    return out
+
+
+def _refined_terms(kernel: KernelSpec, hyp, x, y, L, alpha0=None,
+                   tile: int = 2048, probes: int = 16, seed: int = 0,
+                   z=None):
+    """(alpha, logdet, nll, tr_e2) from the factor L: one iterative-
+    refinement step on alpha, alpha += K^-1 (r - K alpha), and the logdet
+    corrected by tr(E), E = L^-1 K L^-T - I, estimated from Rademacher
+    probes as mean(w^T K w) - n with w = L^-T z (gp_tpu exact.py:380-461).
+    One _k_dot_streamed sweep serves the residual and every probe; the
+    quadratic forms and tr(E) accumulate in float64, and logdet and nll
+    are float64.  tr_e2 (float64, not in gp_tpu) estimates tr(E^2) from
+    the same probes, mean |L^-1 K w - z|^2: log det(I + E) = tr(E) -
+    tr(E^2) / 2 + ..., so tr_e2 / 4 is the size of what the first-order
+    correction leaves out of nll.  z: the probes (n, probes); None draws
+    rademacher_probes(n, probes, seed)."""
+    n = x.shape[0]
+    nc = kernel.num_hyp(x.shape[1])
+    sn2 = hyp_sn2(hyp)
+    r = y - hyp_mean(hyp)
+    if alpha0 is None:
+        alpha0 = chol_solve(L, r)
+    if z is None:
+        z = rademacher_probes(n, probes, seed, x.dtype, x.device)
+    W = solve_lower_t(L, z.to(x.dtype))
+    V = _k_dot_streamed(kernel, hyp[:nc], x, sn2,
+                        torch.cat([alpha0[:, None], W], dim=1), tile)
+    alpha = alpha0 + chol_solve(L, r - V[:, 0])
+    f64 = torch.float64
+    tr_e = torch.mean(torch.sum(W.to(f64) * V[:, 1:].to(f64), dim=0)) - n
+    Ez = solve_lower(L, V[:, 1:]).to(f64) - z.to(f64)
+    tr_e2 = torch.mean(torch.sum(Ez * Ez, dim=0))
+    data_fit = torch.dot(r.to(f64), alpha.to(f64))
+    logdet = chol_logdet(L).to(f64) + tr_e
+    nll = 0.5 * data_fit + 0.5 * logdet + _half_n_log_2pi(n)
+    return alpha, logdet, nll, tr_e2
+
+
+def nll_refined(kernel: KernelSpec, hyp, x, y, tile: int = 2048,
+                probes: int = 16, seed: int = 0, z=None):
+    """The refined NLL (float64) at hyp: the factor, then _refined_terms
+    (gp_tpu exact.py:380-416).  A float32 factor's NLL at N ~ 5e4 is off
+    by ~1e-3 relative; the refinement repairs the data fit and the
+    logdet in O(N^2)."""
+    L = _factor_k_noise(kernel, hyp, x)
+    return _refined_terms(kernel, hyp, x, y, L, None,
+                          _snap_tile(x.shape[0], tile), probes, seed, z)[2]
+
+
+def nll_vg_streamed(kernel: KernelSpec, hyp, x, y, tile: int = 4096,
+                    decomp: bool = True):
+    """NLL and hyperparameter gradient with two N^2 buffers, L and
+    T = L^-1, plus (N, tile) panels (gp_tpu exact.py:464-587).
+
+    tr(K^-1) = ||T||_F^2.  Per column tile I, K^-1_I = T^T T[:, I]; T is
+    lower-triangular, so T[:, I] is zero above I's first row and the
+    product reads T[j:] only.  The cotangent Q_I = K^-1_I^T - alpha_I
+    alpha^T is contracted at once against the vjp of K2's rows
+    kernel.k(chyp, x_I, X), for any covariance form.  gp_tpu's tile
+    snapping is kept; where no tile divides n (or n <= tile) the K^-1
+    columns come from solves of identity columns instead.  Under
+    debug_decomp_enabled() prints gp_tpu's "nll_vg_streamed" breakdown
+    (exact.py:507-511), unless decomp is False.  NaN/inf propagate."""
+    n = x.shape[0]
+    if n > tile:
+        tile = _snap_tile(n, tile)
+    nc = kernel.num_hyp(x.shape[1])
+    chyp = hyp[:nc]
+    sn2 = hyp_sn2(hyp)
+    L = _factor_k_noise(kernel, hyp, x)
+    r = y - hyp_mean(hyp)
+    alpha = chol_solve(L, r)
+    terms = (0.5 * torch.dot(r, alpha), 0.5 * chol_logdet(L),
+             _half_n_log_2pi(n))
+    value = terms[0] + terms[1] + terms[2]
+    if decomp and debug_decomp_enabled():
+        _print_decomp("nll_vg_streamed", *terms)
+
+    def grad_tile(kinv_i, j, b):
+        """0.5 sum(Q_I o dK_I/dchyp) of K^-1's columns [j, j + b)."""
+        q = kinv_i.T - alpha[j:j + b, None] * alpha[None, :]
+        c = chyp.detach().requires_grad_(True)
+        with torch.enable_grad():
+            rows = kernel.k(c, x[j:j + b], x)
+        g, = torch.autograd.grad(rows, c, q)
+        return 0.5 * g
+
+    g_cov = x.new_zeros(nc)
+    if n % tile == 0 and n > tile:
+        T = tri_inv(L)
+        del L
+        tr_kinv = torch.linalg.vector_norm(T).square()
+        for j in range(0, n, tile):
+            g_cov += grad_tile(T[j:].T @ T[j:, j:j + tile], j, tile)
+    else:
+        tr_kinv = x.new_zeros(())
+        for j in range(0, n, tile):
+            b = min(tile, n - j)
+            E = x.new_zeros((n, b))
+            E[j:j + b].fill_diagonal_(1.0)
+            kinv_i = chol_solve(L, E)
+            tr_kinv += torch.trace(kinv_i[j:j + b])
+            g_cov += grad_tile(kinv_i, j, b)
+    g_sn = sn2 * (tr_kinv - torch.dot(alpha, alpha))
+    grad = torch.cat([g_cov, torch.stack([g_sn, -torch.sum(alpha)])
+                      .to(g_cov.dtype)])
+    return value, grad
+
+
+# the refined NLL's parity target (gp_tpu's, benchmarks/golden/
+# tpu_fit_n51200_warm.json): set_k_streamed warns where the term its
+# logdet correction leaves out is larger
+REFINED_TOL = 1e-4
+
+
+def set_k_streamed(kernel: KernelSpec, hyp, x, y, tile: int = 2048,
+                   max_tries: int = 32, probes: int = 16, seed: int = 0,
+                   z=None):
+    """set_k in the stream regime (gp_tpu exact.py:692-803): returns
+    (hyp', {"logdet", "nll_refined"}, invKys), the refined alpha as
+    invKys; no factor is kept.
+
+    The candidates are gp_tpu's: sn2_0, then sn2_0 + 2^k N eps mean(sf2)
+    for k = 0..7 (the f32 conditioning floor, added: a fitted noise one
+    rounding flip below the cliff lands within ~2x of it), then the
+    reference's x sqrt(10) ladder (GP.cpp:431-440), max_tries in all.
+    Each attempt builds, factors, tests the factor and, when it passed,
+    computes the refined terms; its factor is dropped after it.  A raised
+    noise is reported on stderr; RuntimeError when every candidate
+    fails.  probes, seed, z as in _refined_terms.
+
+    The refined NLL is first order in E = L^-1 K L^-T - I, which grows as
+    the noise nears the conditioning floor: on an H100 in float32 at N =
+    51200 a fit ends at sn2 ~ 0.1 of N eps mean(sf2), where the factor
+    still passes and the refined NLL is 0.9 % below the float64 NLL
+    (PERF.md).  Where tr(E^2) / 4, the term the expansion leaves out, is
+    above REFINED_TOL of |nll_refined|, a warning says so on stderr; the
+    value stays gp_tpu's."""
+    n = x.shape[0]
+    tile = _snap_tile(n, tile)
+    nc = kernel.num_hyp(x.shape[1])
+    hyp = hyp.to(x.dtype)
+    log_sn0 = float(hyp[-2])
+    eps = torch.finfo(x.dtype).eps
+    floor = n * eps * float(torch.mean(kernel.diag_k(hyp[:nc], x)))
+    sn2_0 = math.exp(2.0 * log_sn0) if math.isfinite(log_sn0) else 0.0
+    candidates = [sn2_0] + [sn2_0 + floor * 2.0 ** k for k in range(8)]
+    sn2_mult = max(sn2_0 + floor * 2.0 ** 7, eps ** 2)
+    candidates += [sn2_mult * 10.0 ** (0.5 * k)
+                   for k in range(1, max_tries - 8)]
+    if z is None:
+        z = rademacher_probes(n, probes, seed, x.dtype, x.device)
+    out = None
+    for tries, sn2 in enumerate(candidates):
+        h = hyp.clone()
+        h[-2] = 0.5 * math.log(sn2) if sn2 > 0 else -INF
+        L = _factor_k_noise(kernel, h, x)
+        if bool(chol_ok(L)):
+            out = (h, *_refined_terms(kernel, h, x, y, L, None, tile, z=z))
+            break
+        del L
+    if out is None:
+        raise RuntimeError(
+            f"set_k_streamed: posterior factorization failed after "
+            f"{len(candidates)} rescue attempts (conditioning-floor "
+            f"schedule then the x-sqrt(10) ladder up to "
+            f"log_sn={0.5 * math.log(candidates[-1]):.2f}); refusing to "
+            f"cache a NaN posterior")
+    h, alpha, logdet, nll_ref, tr_e2 = out
+    if tries:
+        print(f"[gp_tpu_torch] set_k_streamed: noise raised from "
+              f"log_sn={log_sn0:.4f} to {float(h[-2]):.4f} ({tries} rescue "
+              f"attempt(s), conditioning floor {floor:.3e}) before the "
+              f"factorization succeeded", file=sys.stderr, flush=True)
+    left_out = 0.25 * float(tr_e2)
+    if not left_out <= REFINED_TOL * abs(float(nll_ref)):
+        c = candidates[tries] / floor if floor > 0 else INF
+        print(f"[gp_tpu_torch] set_k_streamed: the refined NLL "
+              f"{float(nll_ref):.6f} may be off by ~{left_out:.3e} "
+              f"(tr(E^2)/4, left out of its first-order logdet "
+              f"correction; sn2 is {c:.3e} x the conditioning floor "
+              f"{floor:.3e})", file=sys.stderr, flush=True)
+    return h, {"logdet": float(logdet), "nll_refined": float(nll_ref)}, \
+        alpha
+
+
 def objective_vg(kernel: KernelSpec, noise_free: bool, vec, x, y,
                  solver: SolverSpec = CHOL, blocked=None,
                  decomp: bool = True):
-    """(value, grad) over the optimization vector, INF-sanitized; blocked
-    and decomp as in nll_vg_raw."""
+    """(value, grad) over the optimization vector, INF-sanitized: from
+    nll_vg_streamed where use_streamed_vg says so, else nll_vg_raw;
+    blocked and decomp as in nll_vg_raw."""
     if solver.name != "chol":
         raise NotImplementedError(
             f"solver {solver.name!r}: only 'chol' is ported (ROADMAP "
             f"module 12)")
-    f, g_hyp = nll_vg_raw(kernel, from_opt_vec(vec, noise_free), x, y,
-                          blocked, decomp)
+    hyp = from_opt_vec(vec, noise_free)
+    if use_streamed_vg(kernel, x):
+        f, g_hyp = nll_vg_streamed(kernel, hyp, x, y, decomp=decomp)
+    else:
+        f, g_hyp = nll_vg_raw(kernel, hyp, x, y, blocked, decomp)
     return sanitize_value_and_grad(f, to_opt_vec(g_hyp, noise_free))
 
 
@@ -224,7 +521,6 @@ def set_k(kernel: KernelSpec, hyp, x, y, solver: SolverSpec = CHOL,
     Returns (hyp', factors, invKys, ok): hyp' may carry inflated noise, as
     the reference mutates _hyps; ok=False means max_tries were exhausted
     (the caller must refuse to cache that posterior)."""
-    _check_n(x.shape[0])
     nc = kernel.num_hyp(x.shape[1])
     Kcov = kernel.k(hyp[:nc], x, x)
     d0 = Kcov.diagonal().clone()
@@ -313,6 +609,22 @@ def predict_s2_with_grad(kernel: KernelSpec, hyp, x, f, xs,
     return s2.detach(), g
 
 
+def predict_streamed(kernel: KernelSpec, hyp, x, invKys, xs):
+    """(mu, s2) of a stream-regime posterior, which caches no factor:
+    factor K at hyp, then predict's math (gp_tpu exact.py:890-909)."""
+    return predict(kernel, hyp, x, (_factor_k_noise(kernel, hyp, x),),
+                   invKys, xs)
+
+
+def predict_s2_with_grad_streamed(kernel: KernelSpec, hyp, x, xs):
+    """(s2, ds2/dx*) of a stream-regime posterior: factor K at hyp, then
+    predict_s2_with_grad, whose autograd gives gp_tpu's hoisted form
+    d(k*^T K^-1 k*)/dx* = 2 (dk*/dx*)^T K^-1 k*, the clamp straight
+    through (gp_tpu exact.py:912-946)."""
+    return predict_s2_with_grad(kernel, hyp, x,
+                                (_factor_k_noise(kernel, hyp, x),), xs)
+
+
 # --------------------------------------------------------------------------
 # Model class
 # --------------------------------------------------------------------------
@@ -321,7 +633,9 @@ class GP(GPBase):
     """Exact GP with the reference's public API surface (GP.h:79-122).
 
     `GP(X, y)` runs on CUDA in float32; `GP(X, y, device="cpu")` on the
-    CPU in float64.  Only the "chol" solver is ported.
+    CPU in float64.  Only the "chol" solver is ported.  From
+    _STREAM_MIN_N rows it is in gp_tpu's stream regime (the module
+    docstring).
     """
 
     _MAX_EVAL = 160
@@ -329,15 +643,53 @@ class GP(GPBase):
     # debug_decomp_enabled() (BucketedGP's does not, as gp_tpu's)
     _DECOMP = True
 
-    def __init__(self, train_x, train_y, kernel="se_ard", dtype=None,
-                 seed: int = DEFAULT_SEED, solver="chol", device=None):
-        super().__init__(train_x, train_y, kernel=kernel, dtype=dtype,
-                         seed=seed, solver=solver, device=device)
-        _check_n(self.num_train)
+    def _in_stream_regime(self) -> bool:
+        return (self.solver.name == "chol"
+                and self.num_train >= _STREAM_MIN_N)
 
-    def add_data(self, x, y):
-        super().add_data(x, y)
-        _check_n(self.num_train)
+    def subset_init_hyps(self, m: int = 8192, seed: int = 0) -> np.ndarray:
+        """MLE hyps of a fit to m random rows, the large-N warm start
+        (gp_tpu exact.py:964-1005): the rows are
+        np.random.default_rng(seed).choice(n, m, replace=False), as
+        gp_tpu's; the subset model has this model's kernel, solver, noise
+        settings, dtype and device.  The noise is clamped from below at
+        log_sf + 0.5 log(2 N eps): a subset MLE can fit the noise down to
+        its lower bound, and that start is far off at full N.  log_sf is
+        read at index num_cov - 1, as gp_tpu reads it (for RQ that entry
+        is log alpha).  The defaults when n <= m."""
+        n = self.num_train
+        if n <= m:
+            return self.get_default_hyps()
+        idx = np.random.default_rng(seed).choice(n, m, replace=False)
+        sub = GP(_np(self._x)[idx], _np(self._y)[idx], kernel=self.kernel,
+                 dtype=self._dtype, solver=self.solver, device=self._device)
+        sub.set_noise_lower_bound(self._noise_lb)
+        if self._noise_free:
+            sub.set_noise_free(True)
+        sub.train()
+        hyp = np.array(sub.get_hyp(), np.float64)
+        if not self._noise_free:
+            log_sf = float(hyp[self._num_cov - 1])
+            eps = float(torch.finfo(self._dtype).eps)
+            hyp[-2] = max(float(hyp[-2]),
+                          log_sf + 0.5 * float(np.log(2.0 * n * eps)))
+        return hyp
+
+    def _warm_start_hyps(self):
+        """In the stream regime, the subset-MLE start (m = min(8192,
+        N / 2)) that train() probes against a default or INF start
+        (gp_tpu exact.py:1007-1030); None elsewhere."""
+        if not self._in_stream_regime():
+            return None
+        m = min(8192, self.num_train // 2)
+        if m < 8:
+            return None
+        hyp = self.subset_init_hyps(m=m)
+        print(f"[gp_tpu_torch] train: HBM-scale start recovery — "
+              f"subset-MLE warm start (m={m}) probes against the given "
+              f"start; subset log_sn={float(hyp[-2]):.4f}",
+              file=sys.stderr, flush=True)
+        return hyp
 
     def _nll_value(self, hyp):
         return nll(self.kernel, hyp, self._x, self._y, self.solver,
@@ -363,6 +715,13 @@ class GP(GPBase):
                    solver=self.solver, decomp=self._DECOMP)
 
     def _update_posterior(self):
+        if self._in_stream_regime():
+            # the cache is invKys and the scalars; no factor
+            hyp, self._post_aux, invKys = set_k_streamed(
+                self.kernel, self._hyps, self._x, self._y)
+            self._post = (invKys,)
+            self._hyps = hyp
+            return
         hyp, f, invKys, ok = set_k(self.kernel, self._hyps, self._x,
                                    self._y, self.solver)
         if not ok:
@@ -373,17 +732,44 @@ class GP(GPBase):
                 "(set_k exhausted max_tries); refusing to cache a NaN "
                 "posterior")
         self._post = (*f, invKys)
+        self._post_aux = None
         self._hyps = hyp
 
+    def _nll_from_posterior(self):
+        """In the stream regime, the refined NLL that set_k_streamed
+        computed beside the posterior (gp_tpu exact.py:1111-1133); the
+        raw data fit plus the cached logdet if that is not finite; None
+        elsewhere."""
+        if not (self._in_stream_regime() and self._post is not None
+                and self._post_aux is not None):
+            return None
+        v = self._post_aux.get("nll_refined")
+        if v is not None and np.isfinite(v):
+            return float(v)
+        r = self._y - hyp_mean(self._hyps)
+        v = float(0.5 * torch.dot(r, self._post[-1])
+                  + 0.5 * self._post_aux["logdet"]
+                  + _half_n_log_2pi(self.num_train))
+        return v if np.isfinite(v) else INF
+
     def _factors(self):
+        if self._in_stream_regime():
+            raise RuntimeError(
+                "stream-regime posteriors cache no factor; the variance "
+                "predictions refactor (predict_streamed)")
         return tuple(self._post[:-1])
 
     def _inv_kys(self):
         return self._post[-1]
 
     # -- prediction API (GP.h:104-119); tensors on the model's device --------
+    # In the stream regime the variance paths refactor; the mean paths
+    # read the cached invKys (gp_tpu exact.py:1353-1416).
     def batch_predict(self, xs):
         self._require_trained()
+        if self._in_stream_regime():
+            return predict_streamed(self.kernel, self._hyps, self._x,
+                                    self._inv_kys(), self._as_batch(xs))
         return predict(self.kernel, self._hyps, self._x, self._factors(),
                        self._inv_kys(), self._as_batch(xs), self.solver)
 
@@ -394,6 +780,8 @@ class GP(GPBase):
 
     def batch_predict_s2(self, xs):
         self._require_trained()
+        if self._in_stream_regime():
+            return self.batch_predict(xs)[1]
         return predict_s2(self.kernel, self._hyps, self._x, self._factors(),
                           self._as_batch(xs), self.solver)
 
@@ -404,6 +792,9 @@ class GP(GPBase):
 
     def batch_predict_s2_with_grad(self, xs):
         self._require_trained()
+        if self._in_stream_regime():
+            return predict_s2_with_grad_streamed(
+                self.kernel, self._hyps, self._x, self._as_batch(xs))
         return predict_s2_with_grad(self.kernel, self._hyps, self._x,
                                     self._factors(), self._as_batch(xs),
                                     self.solver)

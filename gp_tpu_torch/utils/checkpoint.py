@@ -20,10 +20,14 @@ and key.  Each package loads the other's files:
     draws from a generator seeded with key's value, a gp_tpu model loaded
     from a port file from jax.random with that key.
 
+A stream-regime GP (N >= 32768) caches no factor: its posterior is
+(invKys,) and meta's `post_aux` holds the scalars (logdet, refined NLL),
+as gp_tpu writes them (checkpoint.py:100-105, 152); its variance
+predictions refactor after a load.
+
 Not carried: the distributed posterior (dist_* fields) and the sharded
 checkpoint (checkpoint.py:179-339) are ROADMAP module 14, and a file that
-holds one raises; a stream-regime model (N >= 32768, its column-slab
-factor and post_aux) is module 11, and its model cannot be built yet.
+holds one raises.
 """
 
 from __future__ import annotations
@@ -78,6 +82,8 @@ def save_model(model, path: str) -> None:
         for i, a in enumerate(model._post):
             arrays[f"post_{i}"] = _np(a)
         meta["num_post"] = len(model._post)
+    if model._post_aux is not None:
+        meta["post_aux"] = model._post_aux
     arrays["key"] = _key(model._seed)
     if isinstance(model.draws, GeneratorDraws):
         arrays["draws_state"] = model.draws.gen.get_state().numpy()
@@ -119,6 +125,7 @@ def load_model(path: str, device=None):
                                                     dtype=model.dtype)
                 for i in range(meta["num_post"]))
             model._trained = True
+        model._post_aux = meta.get("post_aux")
         if "draws_state" in z:
             model.draws.gen.set_state(torch.from_numpy(z["draws_state"]))
     return model

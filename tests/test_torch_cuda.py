@@ -473,3 +473,51 @@ def test_cli_on_the_card_and_with_cpu(cuda, tmp_path, monkeypatch):
         assert (on_card > 0) == ("--cpu" not in args)
         pred = read_matrix("pred")
         assert pred.shape == (60, 2) and np.isfinite(pred).all()
+
+
+@pytest.mark.parametrize("blocked", [False, True])
+@pytest.mark.parametrize("kernel", ["se_ard", "matern52"])
+def test_stream_functions_card_match_cpu(cuda, monkeypatch, kernel, blocked):
+    """The stream regime's objective in both forms (nll_vg_streamed, the
+    T = L^-1 form at tile 512, and nll_vg_raw) and its posterior
+    (set_k_streamed) on the card against the CPU, float64, N = 4096 with
+    the threshold lowered to 2048: values rtol 1e-10, gradients 1e-7 of
+    their largest entry, the same hyps, the posterior's scalars rtol 1e-9
+    and invKys 1e-8.  blocked: the factor on the blocked route with K3 leaves
+    (chol._BLOCKED_MIN_N lowered to 2048), else the library's.  The
+    Rademacher probes are drawn on the CPU for both devices."""
+    import math
+    from gp_tpu_torch.models import exact
+    from gp_tpu_torch.ops.kernels import get_kernel
+    monkeypatch.setattr(chol, "_BLOCKED_MIN_N", 2048 if blocked else 10**9)
+    monkeypatch.setattr(exact, "_STREAM_MIN_N", 2048)
+    g = torch.Generator().manual_seed(3)
+    n, d = 4096, 6
+    X = torch.rand(n, d, generator=g, dtype=torch.float64) * 4 - 2
+    y = torch.sin(2 * X[:, 0]) + 0.1 * torch.randn(n, generator=g,
+                                                     dtype=torch.float64)
+    spec = get_kernel(kernel)
+    hyp = torch.tensor([0.3] * d + [0.0, math.log(0.1), 0.0],
+                       dtype=torch.float64)
+    z = exact.rademacher_probes(n, 16, 0, torch.float64, "cpu")
+    assert torch.equal(exact.rademacher_probes(n, 16, 0, torch.float64,
+                                               cuda).cpu(), z)
+    out = []
+    for dev in ("cpu", cuda):
+        args = [t.to(dev) for t in (hyp, X, y)]
+        chol_block.reset_launches()
+        out.append((exact.nll_vg_streamed(spec, *args, tile=512),
+                    exact.nll_vg_raw(spec, *args),
+                    exact.set_k_streamed(spec, *args, z=z.to(dev))))
+    assert (chol_block.launches["chol_inv_reg"] > 0) == blocked
+    for (f0, g0), (f1, g1) in zip(out[0][:2], out[1][:2]):
+        assert math.isclose(float(f1), float(f0), rel_tol=1e-10)
+        assert torch.allclose(g1.cpu(), g0, rtol=1e-7,
+                              atol=1e-7 * float(g0.abs().max()))
+    h0, aux0, a0 = out[0][2]
+    h1, aux1, a1 = out[1][2]
+    assert torch.equal(h1.cpu(), h0)
+    for k in ("logdet", "nll_refined"):
+        assert math.isclose(aux1[k], aux0[k], rel_tol=1e-9)
+    assert torch.allclose(a1.cpu(), a0, rtol=1e-8,
+                          atol=1e-8 * float(a0.abs().max()))

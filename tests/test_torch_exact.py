@@ -280,8 +280,13 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 def test_unported_paths_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="module 11"):
-        TGP(np.zeros((32768, 1)), np.zeros(32768), device="cpu")
+    # the stream regime (module 11) is ported (tests/test_torch_stream.py);
+    # BucketedGP is not carried into it
+    assert TGP(np.zeros((32768, 1)), np.zeros(32768),
+               device="cpu")._in_stream_regime()
+    from gp_tpu_torch import BucketedGP
+    with pytest.raises(NotImplementedError, match="not carried"):
+        BucketedGP(np.zeros((32768, 1)), np.zeros(32768), device="cpu")
     with pytest.raises(NotImplementedError, match="module 12"):
         TGP(np.zeros((4, 1)), np.zeros(4), solver="qr", device="cpu")
     # the global search (module 7) is ported; the sparse models'
