@@ -125,6 +125,20 @@ line:
              beside it: an NLL beyond 1e-4 of it must come with
              set_k_streamed's first-order warning), predictions of 2000
              held-out rows, s2 with its gradient
+  qr_solvers the QR strategies: at N = 8000 f64 the NLL and its gradient
+             with chol, qr and qr_pivot (QR against chol), seconds each
+             and qr_pivot's factorization alone; the qr_pivot kernel
+             (csrc/qr_pivot.cu) against its plain version at N = 2000;
+             a qr fit at N = 8000 (f32) and a qr_pivot fit at N = 2000
+             (f64): RMSE, f32 against f64, K1/K2/qr_pivot launches and no
+             K3; a rank-deficient K whose rescue ends where the CPU's does
+  distributed  GP.train_distributed at gp_tpu's dist_fit configuration
+             (N = 16384, d = 10) on an NCCL mesh of min(cards, 4)
+             processes (parallel.mesh.spawn): fit, seconds and K2 launches
+             an evaluation, peak memory, RMSE, the f64 objective and
+             posterior against the single card's, save_model ->
+             load_model -> restore_distributed bit for bit, and
+             FITC.train_distributed at N = 8000, M = 512
   cli_gp, cli_fitc  train_x / train_y / test_x written by write_matrix,
              then `python -m gp_tpu_torch gp 8000` and `fitc 8000 512` as
              child processes (CLI_CHILD prints their launch counts): the
@@ -2395,6 +2409,436 @@ def phase_stream_fit(torch) -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# The QR solver strategies (module 12)
+# ---------------------------------------------------------------------------
+
+QR_PIVOT_N = 2000     # the qr_pivot fit's rows: N sequential pivot steps a
+                      # factorization, each a handful of launches
+QR_VALUE_TOL, QR_GRAD_TOL = 1e-9, 1e-7
+F32_NLL_TOL = 1e-3
+
+
+def _synced(torch, fn):
+    """(fn(), seconds) with the card synchronized at both ends."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def qrp_bound_ms(n: int, dtype: str):
+    """Least time of one pivoted QR of an n x n K with Q formed: K read
+    once, Q and R written once (and perm), 8 n^3 / 3 flops (4 n^3 / 3 for
+    R's reflections, 4 n^3 / 3 for Q accumulated backward, as LAPACK's
+    geqp3 and orgqr count them)."""
+    size = 4 if dtype == "float32" else 8
+    t_bytes = (3 * n * n * size + 8 * n) / PEAK_BYTES_S * 1e3
+    t_ops = 8 * n ** 3 / 3 / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _qrp_record(torch, qp, X, y, expect) -> dict:
+    """csrc/qr_pivot.cu at the qr_pivot fit's K (its defaults, noise
+    raised, float64) against qr_pivot_plain on the card: the pivots equal,
+    the largest error of R and Q, times (CUDA events) and the bound."""
+    from gp_tpu_torch import GP
+    from gp_tpu_torch.ops.kernels import SE_ARD, get_k_noise
+    gp = GP(X, y, dtype="float64")
+    h = gp._tensor(parity_hyps(gp.get_default_hyps(), "se_ard", y))
+    K = get_k_noise(SE_ARD)(h[:DIM + 1], torch.exp(2 * h[-2]), gp._x,
+                            len(X))
+    Q, R, p = qp.qr_pivot(K)
+    Q0, R0, p0 = qp.qr_pivot_plain(K)
+    err = max(float((R - R0).abs().max()), float((Q - Q0).abs().max()))
+    n = len(X)
+    expect.append((bool(torch.equal(p, p0))
+                   and err <= 1e-11 * float(K.abs().max()),
+                   f"qr_pivot kernel: pivots equal {torch.equal(p, p0)}, "
+                   f"error {err} against its plain version"))
+    bound_ms, by = qrp_bound_ms(n, "float64")
+    return {"n": n, "dtype": "float64", "max_abs_err": err,
+            "pivots_equal": bool(torch.equal(p, p0)),
+            "ms": cuda_ms(torch, lambda: qp.qr_pivot(K), iters=5, warm=1),
+            "plain_ms": cuda_ms(torch, lambda: qp.qr_pivot_plain(K),
+                                iters=2, warm=1),
+            "bound_ms": bound_ms, "bound_by": by}
+
+
+def phase_qr_solvers(torch, Xtr, ytr, Xte, yte) -> dict:
+    """The QR strategies on the card.  (1) At N = 8000, float64, the main
+    path's data at its default hyps with the noise raised to 0.1 std(y)
+    (parity_hyps): nll and the NLL+gradient (nll_vg_raw, QR's analytic
+    gradient) for chol, qr and qr_pivot, each QR value within
+    QR_VALUE_TOL of chol's (relative) and gradient within QR_GRAD_TOL of
+    chol's largest entry, seconds each, and qr_pivot's factorization
+    alone.  (2) GP(X[:8000], solver="qr").train() in float32 and
+    GP(X[:QR_PIVOT_N], solver="qr_pivot").train() in float64 from the
+    defaults (in float32 the pivoted QR's objective accepts a numerically
+    singular K, the reference's logAbsDeterminant with no SPD test, and
+    that fit descends to spurious negative NLLs and ends at RMSE 0.695 of
+    the constant predictor's 0.878 on an H100, PERF.md §6), each
+    with
+    batch_predict and batch_predict_s2_with_grad, the launch counts set to
+    0 before the model is built and read after: RMSE below 0.6 of the
+    constant predictor's, the f32 NLL within F32_NLL_TOL of the f64 NLL at
+    the fitted hyps (same solver), K1 at least once per evaluation, K2 in
+    the predictions, and no K3 (nor K4, K5, another form).  (3) A
+    rank-deficient K (300 rows, the last 100 duplicating the first) at a
+    noise of 1e-9: qrp_ok false on the card, and set_k's sqrt(10) rescue
+    (qr_pivot, float64) ends on the CPU's noise."""
+    import numpy as np
+    from gp_tpu_torch import GP
+    from gp_tpu_torch.models import exact
+    from gp_tpu_torch.ops import chol_block, se_tile
+    from gp_tpu_torch.ops.kernels import SE_ARD, get_k_noise
+    from gp_tpu_torch.ops import qr_pivot as qp
+    from gp_tpu_torch.ops.qr_pivot import qr_pivot, qrp_ok
+    from gp_tpu_torch.ops.solvers import get_solver
+    from gp_tpu_torch.optim.lbfgsb import explain_result
+
+    res = {"objective_f64": {}}
+    # the checks run after the phase's line is printed
+    expect = []
+    gp64 = GP(Xtr, ytr, dtype="float64")
+    hyp = gp64._tensor(parity_hyps(gp64.get_default_hyps(), "se_ard", ytr))
+    x, y = gp64._x, gp64._y
+    vals = {}
+    for name in ("chol", "qr", "qr_pivot"):
+        s = get_solver(name)
+        nll, nll_s = _synced(torch, lambda: exact.nll(SE_ARD, hyp, x, y, s))
+        (f, g), vg_s = _synced(torch, lambda: exact.nll_vg_raw(
+            SE_ARD, hyp, x, y, solver=s))
+        vals[name] = (float(nll), float(f), g.cpu().numpy())
+        res["objective_f64"][name] = {"nll": float(nll), "nll_s": nll_s,
+                                      "nll_vg": float(f), "nll_vg_s": vg_s}
+    f_c, g_c = vals["chol"][1], vals["chol"][2]
+    for name in ("qr", "qr_pivot"):
+        n_q, f_q, g_q = vals[name]
+        rel = max(abs(n_q - f_c), abs(f_q - f_c)) / abs(f_c)
+        grad = float(np.max(np.abs(g_q - g_c)) / np.max(np.abs(g_c)))
+        res["objective_f64"][name].update(value_rel_to_chol=rel,
+                                          grad_rel_to_chol=grad)
+        expect.append((rel <= QR_VALUE_TOL, f"{name}: f64 NLL {rel} from "
+                       f"chol's (limit {QR_VALUE_TOL})"))
+        expect.append((grad <= QR_GRAD_TOL, f"{name}: f64 gradient {grad} "
+                       f"of chol's largest entry from it (limit "
+                       f"{QR_GRAD_TOL})"))
+    K = get_k_noise(SE_ARD)(hyp[:DIM + 1], torch.exp(2 * hyp[-2]), x,
+                            N_TRAIN)
+    (Q, R, perm), res["qr_pivot_factor_s"] = _synced(torch,
+                                                     lambda: qr_pivot(K))
+    expect.append((bool(qrp_ok(R)), "qr_pivot: K at the parity hyps refused"))
+    del K, Q, R, perm, gp64
+    torch.cuda.empty_cache()
+    res["qr_pivot_kernel"] = _qrp_record(torch, qp, Xtr[:QR_PIVOT_N],
+                                         ytr[:QR_PIVOT_N], expect)
+
+    res["fits"] = {}
+    for solver, n, dtype in (("qr", N_TRAIN, "float32"),
+                             ("qr_pivot", QR_PIVOT_N, "float64")):
+        se_tile.reset_launches()
+        chol_block.reset_launches()
+        qp.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gp = GP(Xtr[:n], ytr[:n], solver=solver, dtype=dtype)
+        nll = gp.train()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        evals = int(gp.last_opt_result.evals)
+        (mu, _), pred_s = _synced(torch, lambda: gp.batch_predict(Xte))
+        s2, gs2 = gp.batch_predict_s2_with_grad(Xte[:N_GRAD])
+        torch.cuda.synchronize()
+        counts = _counts(se_tile, chol_block)
+        counts["qr_pivot"] = qp.launches["qr_pivot"]
+        chol_counts = dict(chol_block.launches)
+        rmse = _rmse(mu.cpu().numpy(), yte)
+        rmse_const = _rmse(np.full_like(yte, ytr[:n].mean()), yte)
+        hyp_fit = gp.get_hyp()
+        nll64, nll32 = (GP(Xtr[:n], ytr[:n], solver=solver,
+                           dtype=dt).nll(hyp_fit)
+                        for dt in ("float64", "float32"))
+        rel = abs(nll32 - nll64) / abs(nll64)
+        fit = {"n": n, "dtype": dtype, "nll": nll, "evals": evals,
+               "fit_s": fit_s,
+               "status": explain_result(gp.last_opt_result),
+               "hyp": hyp_fit.tolist(),
+               "s_per_eval": fit_s / evals, "predict_1000_s": pred_s,
+               "rmse": rmse, "rmse_const": rmse_const,
+               "nll_f32_at_fit": nll32, "nll_f64_at_fit": nll64,
+               "f32_vs_f64": rel, "launches": counts,
+               "chol_launches": chol_counts,
+               "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+        res["fits"][solver] = fit
+        for k, v in (("mu", mu), ("s2", s2), ("gs2", gs2)):
+            expect.append((bool(torch.isfinite(v).all()),
+                           f"{solver}: {k} not finite"))
+        expect.append((rmse < 0.6 * rmse_const,
+                       f"{solver} fit: held-out RMSE {rmse} not below 0.6 "
+                       f"of the constant predictor's {rmse_const}"))
+        expect.append((rel <= F32_NLL_TOL,
+                       f"{solver}: f32 NLL {nll32} is {rel} from the f64 "
+                       f"NLL {nll64} at the fitted hyps"))
+        expect.append((counts["k1"] >= evals and counts["k2"] > 0
+                       and (counts["qr_pivot"] >= evals)
+                       == (solver == "qr_pivot"),
+                       f"{solver}: K1/K2/qr_pivot launches {counts} for "
+                       f"{evals} evaluations"))
+        expect.append((sum(chol_counts.values()) == 0 and counts["other"] == 0,
+              f"{solver}: K3-K5 or another form launched on the QR path: "
+              f"{chol_counts}, {counts}"))
+        del gp
+        torch.cuda.empty_cache()
+
+    # a rank-deficient K: duplicated rows at a 1e-9 noise
+    Xd = np.array(Xtr[:300])
+    Xd[200:] = Xd[:100]
+    yd = np.array(ytr[:300])
+    gp_d = GP(Xd, yd, dtype="float64", solver="qr_pivot")
+    hyp_d = gp_d.get_default_hyps()
+    hyp_d[-2] = math.log(1e-9)
+    ends = {}
+    for dev in ("cuda", "cpu"):
+        xd = torch.tensor(Xd, dtype=torch.float64, device=dev)
+        hd = torch.tensor(hyp_d, dtype=torch.float64, device=dev)
+        Kd = get_k_noise(SE_ARD)(hd[:DIM + 1], torch.exp(2 * hd[-2]), xd,
+                                 300)
+        ok0 = bool(qrp_ok(qr_pivot(Kd)[1]))
+        h, _, _, ok = exact.set_k(SE_ARD, hd, xd, torch.tensor(
+            yd, dtype=torch.float64, device=dev), get_solver("qr_pivot"))
+        ends[dev] = {"qrp_ok_at_start": ok0, "log_sn_end": float(h[-2]),
+                     "ok": ok}
+    res["rank_deficient"] = ends
+    expect.append((not ends["cuda"]["qrp_ok_at_start"],
+          "qr_pivot accepted the rank-deficient K on the card"))
+    expect.append((ends["cuda"]["ok"] and ends["cuda"]["log_sn_end"]
+          == ends["cpu"]["log_sn_end"],
+          f"set_k's rescue (qr_pivot) ends at {ends}"))
+    emit("qr_solvers", **res)
+    for cond, what in expect:
+        check(cond, what)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# The 1-D distributed layer (module 14, part 1)
+# ---------------------------------------------------------------------------
+
+# gp_tpu's dist_fit configuration (benchmarks/big_fit.py:299-336, record
+# benchmarks/golden/tpu_dist_fit_n16384.json: final NLL -3271.83, RMSE
+# 0.1675, 85 evaluations on its one-device "rows" mesh)
+DIST_N, DIST_D = 16384, 10
+DIST_TEST_N, DIST_TEST_SEED = 2000, 7
+DIST_PRED_TOL = 1e-5
+DIST_TIMEOUT = 900
+
+
+def _dist_rank(mesh, ckpt: str) -> dict:
+    """One process's part of the distributed phase (phase_distributed);
+    returns its numbers, which the parent checks."""
+    import numpy as np
+    import torch
+    from gp_tpu_torch import FITC, GP
+    from gp_tpu_torch.models import exact
+    from gp_tpu_torch.ops import chol_block, se_tile
+    from gp_tpu_torch.parallel import pgp
+    from gp_tpu_torch.utils.checkpoint import load_model
+    from gp_tpu_torch.utils.synth import make_data
+
+    out = {"rank": mesh.axis("rows").index, "device": str(mesh.device)}
+    X, y = make_data(DIST_N, d=DIST_D, seed=SEED)
+    Xte, yte = make_data(DIST_TEST_N, d=DIST_D, seed=DIST_TEST_SEED)
+
+    # the path: the fit, the posterior, the predictions
+    torch.cuda.reset_peak_memory_stats()
+    se_tile.reset_launches()
+    chol_block.reset_launches()
+    t0 = time.perf_counter()
+    gp = GP(X, y)
+    nll = gp.train_distributed(mesh)
+    torch.cuda.synchronize()
+    out["fit_s"] = time.perf_counter() - t0
+    out["nll"] = nll
+    out["evals"] = int(gp.last_opt_result.evals)
+    mu, s2 = gp.batch_predict(Xte)
+    s2g, gs2 = gp.batch_predict_s2_with_grad(Xte[:N_GRAD])
+    yg, gy = gp.batch_predict_y_with_grad(Xte[:N_GRAD])
+    torch.cuda.synchronize()
+    out["launches"] = _counts(se_tile, chol_block)
+    out["chol_launches"] = dict(chol_block.launches)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    out["finite"] = all(bool(torch.isfinite(t).all())
+                        for t in (mu, s2, s2g, gs2, yg, gy))
+    out["rmse"] = _rmse(mu.cpu().numpy(), yte)
+    out["rmse_const"] = _rmse(np.full_like(yte, y.mean()), yte)
+    out["hyp"] = gp.get_hyp().tolist()
+    _, block, L, _ = gp._post_dist
+    out["block"], out["local_rows"] = block, list(L.shape)
+
+    # one evaluation at the fitted hyps: seconds and K2 launches
+    k2 = se_tile.launches["se_matrix"]["se"]
+    _, out["eval_s"] = _synced(torch, lambda: pgp.pnll_vg(
+        gp.kernel, gp._hyps, gp._x, gp._y, mesh, block))
+    out["k2_per_eval"] = se_tile.launches["se_matrix"]["se"] - k2
+    out["local_blocks"] = L.shape[0]
+
+    # float64 at the fitted hyps: the distributed objective against the
+    # single card's, and both posteriors' predictions
+    def f64(m):
+        m._hyps = m._tensor(gp.get_hyp())
+        return m
+    d64, s64 = f64(GP(X, y, dtype="float64")), f64(GP(X, y, dtype="float64"))
+    (fd, gd), out["eval_f64_s"] = _synced(torch, lambda: pgp.pnll_vg(
+        d64.kernel, d64._hyps, d64._x, d64._y, mesh, block))
+    fs, gs = exact.nll_vg_raw(s64.kernel, s64._hyps, s64._x, s64._y)
+    # the single card's float32 objective at the same point, for scale
+    _, out["eval_single_card_s"] = _synced(torch, lambda: exact.nll_vg_raw(
+        gp.kernel, gp._hyps, gp._x, gp._y))
+    out["f64_value_rel"] = abs(float(fd) - float(fs)) / abs(float(fs))
+    out["f64_grad_rel"] = float((gd - gs).abs().max() / gs.abs().max())
+    hd, Ld, ad, okd = pgp.pset_k(d64.kernel, d64._hyps, d64._x, d64._y,
+                                 mesh, block=block)
+    d64._hyps, d64._post_dist, d64._trained = hd, (mesh, block, Ld, ad), True
+    s64._update_posterior()
+    s64._trained = True
+    gaps = {}
+    for label, call in (("batch_predict", lambda m: m.batch_predict(Xte)),
+                        ("batch_predict_s2_with_grad",
+                         lambda m: m.batch_predict_s2_with_grad(
+                             Xte[:N_GRAD]))):
+        for i, (a, b) in enumerate(zip(call(d64), call(s64))):
+            gaps[f"{label}[{i}]"] = float((a - b).abs().max()
+                                          / b.abs().max())
+    out["pred_f64_rel"] = gaps
+    del d64, s64, Ld, hd, ad
+    # the float32 posteriors' gap, for the record
+    s32 = GP(X, y)
+    s32._hyps = gp._hyps.clone()
+    s32._update_posterior()
+    s32._trained = True
+    mu_s, s2_s = s32.batch_predict(Xte)
+    out["pred_f32_rel"] = [float((mu - mu_s).abs().max() / mu_s.abs().max()),
+                           float((s2 - s2_s).abs().max() / s2_s.abs().max())]
+    del s32
+    torch.cuda.empty_cache()
+
+    # save_model (gathered to the mesh's first process), load_model,
+    # restore_distributed: the predictions bit for bit
+    (_, out["save_s"]) = _synced(torch, lambda: gp.save(ckpt))
+    torch.distributed.barrier()
+    r = load_model(ckpt)
+    r.restore_distributed(mesh)
+    mu_r, s2_r = r.batch_predict(Xte)
+    out["checkpoint_bitwise"] = bool(torch.equal(mu_r, mu)
+                                     and torch.equal(s2_r, s2))
+    del r, gp
+    torch.cuda.empty_cache()
+
+    # FITC with the rows sharded: the sparse_fitc data and inducing rows
+    Xf, yf = make_data(N_TRAIN + N_TEST, d=DIM, seed=SEED)
+    Xf, yf = Xf[:N_TRAIN], yf[:N_TRAIN]
+    se_tile.reset_launches()
+    chol_block.reset_launches()
+    t0 = time.perf_counter()
+    fitc = FITC(Xf, yf)
+    fitc.set_inducing(Xf[-N_INDUCING:])
+    nll_f = fitc.train_distributed(mesh)
+    torch.cuda.synchronize()
+    out["fitc"] = {"fit_s": time.perf_counter() - t0, "nll": nll_f,
+                   "evals": int(fitc.last_opt_result.evals),
+                   "launches": _counts(se_tile, chol_block)}
+    single = FITC(Xf, yf)
+    single.set_inducing(Xf[-N_INDUCING:])
+    single._jitter_u = fitc._jitter_u
+    n_single = single.nll(fitc.get_hyp())
+    out["fitc"]["nll_single_card"] = n_single
+    out["fitc"]["rel"] = abs(nll_f - n_single) / abs(n_single)
+    return out
+
+
+def _se_k1_inputs(torch, X, y, dtype):
+    """K1's inputs at rows X in dtype, at the SE-ARD defaults of (X, y)."""
+    from gp_tpu_torch import GP
+    gp = GP(X, y, dtype=dtype)
+    h = gp._tensor(gp.get_default_hyps())
+    inv_l = torch.exp(-h[:DIM])
+    sf2 = torch.exp(2 * h[DIM])
+    return gp._x, inv_l, sf2, sf2 + torch.exp(2 * h[-2]).expand(len(X))
+
+
+def _dist_k2_record(torch, se_tile, res) -> dict:
+    """K2 at the distributed gradient's row-block shape, (B, N_pad) x d,
+    float32, at the fitted hyps: the first block's rows against every row
+    of the padded data."""
+    from gp_tpu_torch.utils.synth import make_data
+    X, _ = make_data(DIST_N, d=DIST_D, seed=SEED)
+    h = torch.tensor(res["hyp"], dtype=torch.float32, device="cuda")
+    x = torch.zeros((res["local_rows"][2], DIST_D), dtype=torch.float32,
+                    device="cuda")
+    x[:DIST_N] = torch.tensor(X, dtype=torch.float32, device="cuda")
+    return _k2_record(torch, se_tile, x[:res["block"]], x,
+                      torch.exp(-h[:DIST_D]), torch.exp(2 * h[DIST_D]))
+
+
+def phase_distributed(torch) -> dict:
+    """GP.train_distributed at gp_tpu's dist_fit configuration (N = 16384,
+    d = 10, held out make_data(2000, 10, seed=7)) on an NCCL mesh of
+    P = min(cards, 4) processes (parallel.mesh.spawn), float32, from the
+    defaults: the launch counts set to 0 in each process just before its
+    model is built and read after the predictions.  Checks, in each
+    process: RMSE below 0.6 of the constant predictor's; at the fitted
+    hyps the float64 distributed NLL within 1e-9 (relative) of the single
+    card's nll_vg_raw and the gradient within 1e-7 of its largest entry;
+    the float64 distributed posterior's batch_predict and
+    batch_predict_s2_with_grad within DIST_PRED_TOL (relative to the
+    largest entry) of the single-card model's at the same hyps; save_model
+    -> load_model -> restore_distributed predictions bit for bit; K2 once
+    for the build plus once per local block for the gradient in an
+    evaluation, no K1 or K3 on the path; every process the same NLL; then
+    FITC.train_distributed at N = 8000, M = 512 (the sparse_fitc data),
+    float64, its NLL within 1e-9 of the single-card FITC's at its hyps."""
+    import tempfile
+    from gp_tpu_torch.parallel.mesh import spawn
+
+    P = min(torch.cuda.device_count(), 4)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        outs = spawn(_dist_rank, P, "cuda", DIST_TIMEOUT,
+                     (os.path.join(tmp, "dist.npz"),))
+        wall = time.perf_counter() - t0
+    r0 = outs[0]
+    res = {"processes": P, "phase_s": wall, **{k: v for k, v in r0.items()}}
+    emit("distributed", **res)
+    for r in outs:
+        tag = f"rank {r['rank']}"
+        check(r["nll"] == r0["nll"], f"{tag}: NLL {r['nll']} != {r0['nll']}")
+        check(r["finite"], f"{tag}: non-finite predictions")
+        check(r["rmse"] < 0.6 * r["rmse_const"], f"{tag}: RMSE {r['rmse']} "
+              f"not below 0.6 of the constant predictor's {r['rmse_const']}")
+        check(r["f64_value_rel"] <= 1e-9 and r["f64_grad_rel"] <= 1e-7,
+              f"{tag}: f64 distributed objective off the single card's: "
+              f"{r['f64_value_rel']}, {r['f64_grad_rel']}")
+        check(max(r["pred_f64_rel"].values()) <= DIST_PRED_TOL,
+              f"{tag}: distributed predictions off: {r['pred_f64_rel']}")
+        check(r["checkpoint_bitwise"], f"{tag}: restored posterior differs")
+        n = r["launches"]
+        check(n["k2"] > 0 and n["k1"] == 0 and n["k3"] == 0
+              and n["other"] == 0, f"{tag}: launches {n}")
+        check(r["k2_per_eval"] == 1 + r["local_blocks"],
+              f"{tag}: {r['k2_per_eval']} K2 launches an evaluation for "
+              f"{r['local_blocks']} local blocks")
+        f = r["fitc"]
+        check(f["rel"] <= 1e-9, f"{tag}: distributed FITC NLL {f['nll']} "
+              f"off the single card's {f['nll_single_card']}")
+        check(f["launches"]["k2"] > 0 and f["launches"]["k1"] == 0
+              and f["launches"]["k3"] == 0, f"{tag}: FITC launches "
+              f"{f['launches']}")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2449,6 +2893,8 @@ def main() -> int:
                                  "bucketed_bo": bucketed["model"]}, Xte)
         cli = phase_cli(torch, Xtr, ytr, Xte, paths["se_ard"]["gp"],
                         sparse["FITC"]["model"])
+        qr = phase_qr_solvers(torch, Xtr, ytr, Xte, yte)
+        distributed = phase_distributed(torch)
         stream = {"stream_at_golden": phase_stream_at_golden(torch),
                   "stream_fit": phase_stream_fit(torch)}
         src = "gp_tpu_torch/csrc/se_tile.cu"
@@ -2616,6 +3062,47 @@ def main() -> int:
                     "chol_inv", chol_src, "gp_tpu/ops/pallas_chol.py:180",
                     rec3, n["k3"], label, design="chol_inv_reg",
                     shape=[LEAF, LEAF], dtype=dt, library=rec3["library"]))
+        # the QR fits (K1's time at each fit's N and dtype, K2's at the
+        # main shape) and the distributed paths (K2 in float32 at the
+        # gradient's row blocks (B, N_pad) x 10, the build's one launch of
+        # all local rows beside them; FITC's K2 in float64)
+        from gp_tpu_torch.ops import se_tile
+        for solver, fit in qr["fits"].items():
+            n, dt = fit["n"], fit["dtype"]
+            rec1 = k1 if (n, dt) == (N_TRAIN, "float32") else _k1_record(
+                torch, se_tile, *_se_k1_inputs(torch, Xtr[:n], ytr[:n], dt))
+            rec2 = timed[(kernel_name("se", False), dt, 1.0)]
+            kernels.append(row(
+                "se_tile_diag", src, "gp_tpu/ops/pallas_kernels.py:89",
+                rec1, fit["launches"]["k1"], f"qr_solvers ({solver})",
+                device_ms=rec1["device_ms"], form="se",
+                shape=[n, n, DIM], dtype=dt))
+            kernels.append(row(
+                "se_tile", src, "gp_tpu/ops/pallas_kernels.py:71", rec2,
+                fit["launches"]["k2"], f"qr_solvers ({solver})",
+                device_ms=rec2["device_ms"], form="se",
+                shape=[rec2["m"], rec2["n"], rec2["d"]], dtype=dt))
+        rec = qr["qr_pivot_kernel"]
+        n = qr["fits"]["qr_pivot"]["launches"]["qr_pivot"]
+        check(n > 0, "the qr_pivot kernel was not launched on its fit")
+        kernels.append(row(
+            "qr_pivot", "gp_tpu_torch/csrc/qr_pivot.cu",
+            "gp_tpu/ops/qr_pivot.py:27", rec, n, "qr_solvers (qr_pivot)",
+            shape=[rec["n"], rec["n"]], dtype=rec["dtype"],
+            pallas_kernel=False))
+        rec = _dist_k2_record(torch, se_tile, distributed)
+        kernels.append(row(
+            "se_tile", src, "gp_tpu/ops/pallas_kernels.py:71", rec,
+            distributed["launches"]["k2"], "distributed",
+            device_ms=rec["device_ms"], form="se",
+            shape=[rec["m"], rec["n"], rec["d"]], dtype="float32",
+            per_evaluation=distributed["k2_per_eval"]))
+        rec = sparse["FITC"]["k2"]["kxu"]
+        kernels.append(row(
+            "se_tile", src, "gp_tpu/ops/pallas_kernels.py:71", rec,
+            distributed["fitc"]["launches"]["k2"], "distributed_fitc",
+            device_ms=rec["device_ms"], form="se",
+            shape=[rec["m"], rec["n"], rec["d"]], dtype="float64"))
     except CheckFailed as exc:
         print(f"chip_smoke: check failed: {exc}", file=sys.stderr)
         return 1

@@ -206,6 +206,10 @@ class GPBase:
         self.last_search = None      # (best f, evaluations) of the search
         self._post = None            # posterior cache: (*factors, invKys)
         self._post_aux = None        # stream-regime scalars (logdet, nll)
+        # a distributed posterior (mesh, block, this process's factor rows,
+        # invKys) and one read from a checkpoint, before restore_distributed
+        self._post_dist = None
+        self._post_dist_pending = None
 
     def _tensor(self, a):
         """a (numpy, list or tensor) on the model's device and dtype."""
@@ -543,6 +547,11 @@ class GPBase:
     def _require_trained(self):
         if not self._trained:
             raise RuntimeError("model is not trained; call train() first")
+        if (self._post is None and self._post_dist is None
+                and self._post_dist_pending is not None):
+            raise RuntimeError(
+                "checkpoint carries a distributed posterior; call "
+                "restore_distributed(mesh) before serving")
 
     def _as_batch(self, xs):
         xs = self._tensor(xs)

@@ -159,7 +159,8 @@ class BucketedGP(GP):
     # -- GP's predictions over the live block of the posterior ------------
     def _factors(self):
         n = self.num_train
-        return tuple(a[:n, :n] for a in self._post[:-1])
+        return tuple(a[:n] if a.ndim == 1 else a[:n, :n]
+                     for a in self._post[:-1])
 
     def _inv_kys(self):
         return self._post[-1][:self.num_train]

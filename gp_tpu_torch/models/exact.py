@@ -59,7 +59,8 @@ search (lbfgsb_hosted, mvmo_search_hosted, multistart_lbfgsb_hosted, the
 TPU runtime's watchdog: lbfgsb_impl and the search already run one
 evaluation per host step).  Nor are gp_tpu's far-pad decoy branch
 (exact.py:218-309), which avoids XLA:TPU's pad and slice costs (every
-spec pads once instead), and the distributed layer (module 14).
+spec pads once instead), and gp_tpu's 2-D grid route of the distributed
+layer (pchol2d, multihost: ROADMAP module 14, part 2).
 """
 
 from __future__ import annotations
@@ -95,8 +96,35 @@ def _half_n_log_2pi(n: int) -> float:
 # Pure functions
 # --------------------------------------------------------------------------
 
+def _dense_solver_bytes(n: int, dtype) -> int:
+    """The dense non-Cholesky (QR) objective's estimated peak at n rows
+    (gp_tpu exact.py:50-56): the K build and the factors, ~4 N^2 words."""
+    return 4 * n * n * (torch.finfo(dtype).bits // 8)
+
+
+def _check_dense_solver(solver: SolverSpec, x) -> None:
+    """gp_tpu's stream-scale guard for a non-Cholesky solver
+    (exact.py:76-95, 612-623): from _STREAM_MIN_N rows its dense build and
+    factors must fit the device's budget (sparse.hbm_budget_bytes;
+    GP_TPU_HBM_BYTES raises it), else NotImplementedError: only the
+    Cholesky strategy has a streamed form."""
+    n = x.shape[0]
+    if solver.name == "chol" or n < _STREAM_MIN_N:
+        return
+    from .sparse import hbm_budget_bytes
+    need, budget = _dense_solver_bytes(n, x.dtype), hbm_budget_bytes(x.device)
+    if need > budget:
+        raise NotImplementedError(
+            f"solver '{solver.name}' is unsupported at N={n} >= "
+            f"{_STREAM_MIN_N} (estimated dense footprint {need} B exceeds "
+            f"the {budget} B budget); use the 'chol' solver, whose "
+            f"objective streams at this scale, or raise GP_TPU_HBM_BYTES "
+            f"on a device where the dense build fits")
+
+
 def _nll_terms(kernel: KernelSpec, hyp, x, y, solver: SolverSpec):
     """(data_fit, half_logdet, norm_const) of the NLL at hyp."""
+    _check_dense_solver(solver, x)
     n = x.shape[0]
     nc = kernel.num_hyp(x.shape[1])
     r = y - hyp_mean(hyp)
@@ -133,7 +161,7 @@ def nll(kernel: KernelSpec, hyp, x, y, solver: SolverSpec = CHOL,
 
 
 def nll_vg_raw(kernel: KernelSpec, hyp, x, y, blocked=None,
-               decomp: bool = True):
+               decomp: bool = True, solver: SolverSpec = CHOL):
     """NLL + analytic hyperparameter gradient via the explicit inverse
     (GP.cpp:120-176):
 
@@ -148,10 +176,18 @@ def nll_vg_raw(kernel: KernelSpec, hyp, x, y, blocked=None,
 
     blocked: the factor's route, as chol.factor_and_inverse takes it
     (None: by size and device).  NaN/inf propagate (the caller
-    sanitizes).  Cholesky only.  No host sync: every scalar stays on the
-    device, unless debug_decomp_enabled(), which prints gp_tpu's "nll_vg"
-    breakdown (exact.py:198-202); decomp=False keeps it silent, as
-    nll_raw's.
+    sanitizes).  No host sync: every scalar stays on the device, unless
+    debug_decomp_enabled(), which prints gp_tpu's "nll_vg" breakdown
+    (exact.py:198-202); decomp=False keeps it silent, as nll_raw's.
+
+    solver: a non-Cholesky strategy (QR, QR_PIVOT) factors K with it, and
+    K^-1 = solver.solve(f, I), symmetrized.  gp_tpu takes that gradient by
+    reverse-mode AD through the factorization (exact.py:612-626), which
+    for the pivoted QR keeps the loop's carries, O(N^3) memory that no
+    card holds at N = 8000.  The analytic form gives the same gradient:
+    d log|det K| = tr(K^-1 dK) for any invertible K, and QR's
+    logAbsDeterminant and solve are those of K.  Its breakdown prints as
+    gp_tpu's QR objective prints it, under "nll".
 
     From _STREAM_MIN_N rows on it gives gp_tpu's stream-regime values,
     those of nll_vg_streamed: alpha by chol_solve(L, r), not by K^-1 r
@@ -159,13 +195,17 @@ def nll_vg_raw(kernel: KernelSpec, hyp, x, y, blocked=None,
     by 1.6e-3 relative and the gradient by 1.2e-2 of its largest entry,
     chip_smoke.py's stream_at_golden), and the "nll_vg_streamed" tag."""
     stream = x.shape[0] >= _STREAM_MIN_N
-    value, grad, terms = _nll_vg_terms(kernel, hyp, x, y, blocked, stream)
+    value, grad, terms = _nll_vg_terms(kernel, hyp, x, y, blocked, stream,
+                                       solver)
     if decomp and debug_decomp_enabled():
-        _print_decomp("nll_vg_streamed" if stream else "nll_vg", *terms)
+        tag = ("nll" if solver.name != "chol" else
+               "nll_vg_streamed" if stream else "nll_vg")
+        _print_decomp(tag, *terms)
     return value, grad
 
 
-def _nll_vg_terms(kernel: KernelSpec, hyp, x, y, blocked, stream: bool):
+def _nll_vg_terms(kernel: KernelSpec, hyp, x, y, blocked, stream: bool,
+                  solver: SolverSpec = CHOL):
     """(value, grad, (data_fit, half_logdet, norm_const)) of nll_vg_raw."""
     n = x.shape[0]
     nc = kernel.num_hyp(x.shape[1])
@@ -178,16 +218,25 @@ def _nll_vg_terms(kernel: KernelSpec, hyp, x, y, blocked, stream: bool):
     with torch.set_grad_enabled(generic):
         K_build = get_k_noise(kernel)(*leaves, x, n)
     K = K_build.detach()
-    L, Kinv = factor_and_inverse(K, blocked)
     r = y - hyp_mean(hyp)
-    # gp_tpu's dense form takes alpha from the (already needed) explicit
-    # inverse, one matvec; its stream regime solves with the factor
-    alpha = chol_solve(L, r) if stream else Kinv @ r
-    terms = (0.5 * torch.dot(r, alpha), 0.5 * chol_logdet(L),
-             _half_n_log_2pi(n))
+    if solver.name == "chol":
+        L, Kinv = factor_and_inverse(K, blocked)
+        # gp_tpu's dense form takes alpha from the (already needed)
+        # explicit inverse, one matvec; its stream regime solves with the
+        # factor
+        alpha = chol_solve(L, r) if stream else Kinv @ r
+        half_logdet = 0.5 * chol_logdet(L)
+        del L
+    else:
+        f = solver.factor(K)
+        alpha = solver.solve(f, r)
+        half_logdet = 0.5 * solver.logdet(f)
+        Kinv = solver.solve(f, torch.eye(n, dtype=x.dtype, device=x.device))
+        del f
+        Kinv = 0.5 * (Kinv + Kinv.T)
+    terms = (0.5 * torch.dot(r, alpha), half_logdet, _half_n_log_2pi(n))
     value = terms[0] + terms[1] + terms[2]
     if generic:
-        del L
         # Q = Kinv - alpha alpha^T, written over Kinv (dead from here)
         Q = Kinv.addr_(alpha, alpha, alpha=-1.0)
         g_cov_t, g_sn2 = torch.autograd.grad(K_build, leaves, Q)
@@ -472,13 +521,15 @@ def objective_vg(kernel: KernelSpec, noise_free: bool, vec, x, y,
                  solver: SolverSpec = CHOL, blocked=None,
                  decomp: bool = True):
     """(value, grad) over the optimization vector, INF-sanitized: from
-    nll_vg_streamed where use_streamed_vg says so, else nll_vg_raw;
-    blocked and decomp as in nll_vg_raw."""
-    if solver.name != "chol":
-        raise NotImplementedError(
-            f"solver {solver.name!r}: only 'chol' is ported (ROADMAP "
-            f"module 12)")
+    nll_vg_streamed where use_streamed_vg says so, else nll_vg_raw (a
+    non-Cholesky solver's analytic gradient included); blocked and decomp
+    as in nll_vg_raw."""
     hyp = from_opt_vec(vec, noise_free)
+    if solver.name != "chol":
+        _check_dense_solver(solver, x)
+        f, g_hyp = nll_vg_raw(kernel, hyp, x, y, decomp=decomp,
+                              solver=solver)
+        return sanitize_value_and_grad(f, to_opt_vec(g_hyp, noise_free))
     if use_streamed_vg(kernel, x):
         f, g_hyp = nll_vg_streamed(kernel, hyp, x, y, decomp=decomp)
     else:
@@ -633,9 +684,11 @@ class GP(GPBase):
     """Exact GP with the reference's public API surface (GP.h:79-122).
 
     `GP(X, y)` runs on CUDA in float32; `GP(X, y, device="cpu")` on the
-    CPU in float64.  Only the "chol" solver is ported.  From
-    _STREAM_MIN_N rows it is in gp_tpu's stream regime (the module
-    docstring).
+    CPU in float64.  `solver` selects the MatrixSolver strategy ("chol",
+    "qr", "qr_pivot"), as GP::MatrixDecomp (GP.h:22-26).  From
+    _STREAM_MIN_N rows the Cholesky solver takes gp_tpu's stream regime
+    (the module docstring).  train_distributed fits on a 1-D mesh of
+    processes (parallel/pgp.py).
     """
 
     _MAX_EVAL = 160
@@ -715,6 +768,7 @@ class GP(GPBase):
                    solver=self.solver, decomp=self._DECOMP)
 
     def _update_posterior(self):
+        self._post_dist = None      # a single-device posterior supersedes
         if self._in_stream_regime():
             # the cache is invKys and the scalars; no factor
             hyp, self._post_aux, invKys = set_k_streamed(
@@ -760,13 +814,138 @@ class GP(GPBase):
         return tuple(self._post[:-1])
 
     def _inv_kys(self):
+        if self._post_dist is not None:
+            return self._post_dist[3]
         return self._post[-1]
+
+    # -- distributed training and serving (parallel/pgp.py) ----------------
+    @staticmethod
+    def _is_grid_mesh(mesh) -> bool:
+        return {"rowg", "colg"} <= set(mesh.axis_names)
+
+    @staticmethod
+    def _refuse_grid(mesh) -> None:
+        if GP._is_grid_mesh(mesh):
+            raise NotImplementedError(
+                "a ('rowg', 'colg') grid mesh (gp_tpu's parallel/pchol2d.py "
+                "and multihost.py) is ROADMAP module 14, part 2; it is not "
+                "ported yet: use a 1-D 'rows' mesh (parallel.mesh.make_mesh)")
+
+    def train_distributed(self, mesh, block: int | None = None,
+                          init_hyps=None) -> float:
+        """MLE fit with the N x N kernel matrix block-cyclic over the mesh
+        axis "rows" (gp_tpu exact.py:1141-1291): the distributed blocked
+        Cholesky and the reduced analytic gradient (parallel/pgp.py),
+        optimized in the standardized space as train() is.  The posterior
+        stays sharded (this process's row blocks of L, and invKys), and
+        the predict APIs serve from it.
+
+        Every process of the mesh calls it with the same X, y (and
+        init_hyps), and every process returns the same final NLL (the
+        distributed NLL at the posterior's hyps).  From _STREAM_MIN_N rows
+        a default start is probed against the subset-MLE warm start, as
+        gp_tpu probes it: two distributed evaluations, the warm hyps
+        broadcast from the mesh's first process.  block=None takes
+        pchol.auto_block.  A 2-D grid mesh raises (module 14, part 2)."""
+        from ..parallel import pchol, pgp
+
+        self._refuse_grid(mesh)
+        ax = mesh.axis(pgp.AXIS)
+        used_defaults = init_hyps is None
+        if init_hyps is None:
+            init_hyps = self.get_default_hyps()
+        hyps = np.array(_np(init_hyps), np.float64)
+        if self._noise_free:
+            hyps[-2] = -np.inf
+        if block is None:
+            block = pchol.auto_block(self.num_train, ax.size)
+
+        def dist_nll(h):
+            f, _ = pgp.pnll_vg(self.kernel, self._tensor(h), self._x,
+                               self._y, mesh, block=block)
+            return float(f)
+
+        if used_defaults and self.num_train >= _STREAM_MIN_N:
+            warm = self._tensor(self.subset_init_hyps(
+                m=min(8192, self.num_train // 2)))
+            warm = _np(pchol.broadcast_from(warm, 0, ax)).astype(np.float64)
+            f_def, f_warm = dist_nll(hyps), dist_nll(warm)
+            if np.isfinite(f_warm) and (not np.isfinite(f_def)
+                                        or f_warm < f_def):
+                print(f"[gp_tpu_torch] train_distributed: subset-MLE warm "
+                      f"start wins the probe ({f_warm:.4g} < {f_def:.4g})",
+                      file=sys.stderr, flush=True)
+                hyps = warm
+
+        nf = self._noise_free
+        lb, ub = self._std_bounds()
+        lb_v = to_opt_vec(torch.from_numpy(lb), nf).numpy()
+        ub_v = to_opt_vec(torch.from_numpy(ub), nf).numpy()
+        vec0 = np.clip(to_opt_vec(torch.from_numpy(self._hyp_to_std(hyps)),
+                                  nf).numpy(), lb_v, ub_v)
+        res = pgp.pfit(self.kernel, nf, self._x, self._ys, self._tensor(vec0),
+                       self._tensor(lb_v), self._tensor(ub_v), mesh,
+                       block=block, max_evals=self._MAX_EVAL)
+        self.last_opt_result = res._replace(
+            f=res.f + self.num_train * float(np.log(self._y_sigma)))
+        self._hyps = self._tensor(self._hyp_from_std(
+            _np(from_opt_vec(res.x, nf)).astype(np.float64)))
+        hyp, L, invKys, ok = pgp.pset_k(self.kernel, self._hyps, self._x,
+                                        self._y, mesh, block=block)
+        if not ok:
+            raise RuntimeError(
+                "distributed posterior factorization failed after noise "
+                "inflation (pset_k exhausted max_tries); refusing to cache "
+                "a NaN posterior")
+        self._hyps = hyp
+        self._post = None
+        self._post_aux = None
+        self._post_dist = (mesh, block, L, invKys)
+        self._trained = True
+        return dist_nll(_np(self._hyps))
+
+    def restore_distributed(self, mesh, block=None):
+        """Attach a distributed posterior read from a checkpoint
+        (utils/checkpoint stores the gathered block-cyclic L and invKys
+        with their layout): the mesh's "rows" axis must have the
+        checkpoint's process count.  Each process keeps its own rows."""
+        from ..parallel import pchol, pgp
+
+        self._refuse_grid(mesh)
+        if self._post_dist_pending is None:
+            raise ValueError("no pending distributed posterior to restore")
+        n_dev, blk, L_np, invKys_np = self._post_dist_pending
+        ax = mesh.axis(pgp.AXIS)
+        if ax.size != n_dev:
+            raise ValueError(
+                f"checkpointed posterior is blocked for {n_dev} devices on "
+                f"axis '{pgp.AXIS}'; mesh has axes {mesh.axis_names} shape "
+                f"{dict(mesh.shape)}")
+        self._post_dist = (mesh, blk if block is None else block,
+                           self._tensor(pchol.local_rows(L_np, ax)),
+                           self._tensor(invKys_np))
+        self._post_dist_pending = None
+        self._post = None
+        self._trained = True
+
+    def _ppredict_with_grad_dist(self, xs):
+        from ..parallel import pgp
+        mesh, block, L, invKys = self._post_dist
+        return pgp.ppredict_with_grad(self.kernel, self._hyps, self._x, L,
+                                      invKys, self._as_batch(xs), mesh,
+                                      block=block)
 
     # -- prediction API (GP.h:104-119); tensors on the model's device --------
     # In the stream regime the variance paths refactor; the mean paths
-    # read the cached invKys (gp_tpu exact.py:1353-1416).
+    # read the cached invKys (gp_tpu exact.py:1353-1416).  A distributed
+    # posterior serves through parallel/pgp.py (exact.py:1337-1410).
     def batch_predict(self, xs):
         self._require_trained()
+        if self._post_dist is not None:
+            from ..parallel import pgp
+            mesh, block, L, invKys = self._post_dist
+            return pgp.ppredict(self.kernel, self._hyps, self._x, L, invKys,
+                                self._as_batch(xs), mesh, block=block)
         if self._in_stream_regime():
             return predict_streamed(self.kernel, self._hyps, self._x,
                                     self._inv_kys(), self._as_batch(xs))
@@ -780,18 +959,24 @@ class GP(GPBase):
 
     def batch_predict_s2(self, xs):
         self._require_trained()
-        if self._in_stream_regime():
+        if self._post_dist is not None or self._in_stream_regime():
             return self.batch_predict(xs)[1]
         return predict_s2(self.kernel, self._hyps, self._x, self._factors(),
                           self._as_batch(xs), self.solver)
 
     def batch_predict_y_with_grad(self, xs):
         self._require_trained()
+        if self._post_dist is not None:
+            y, gy, _, _ = self._ppredict_with_grad_dist(xs)
+            return y, gy
         return predict_y_with_grad(self.kernel, self._hyps, self._x,
                                    self._inv_kys(), self._as_batch(xs))
 
     def batch_predict_s2_with_grad(self, xs):
         self._require_trained()
+        if self._post_dist is not None:
+            _, _, s2, gs2 = self._ppredict_with_grad_dist(xs)
+            return s2, gs2
         if self._in_stream_regime():
             return predict_s2_with_grad_streamed(
                 self.kernel, self._hyps, self._x, self._as_batch(xs))
@@ -841,15 +1026,25 @@ def set_k_masked(kernel: KernelSpec, hyp, x_pad, y_pad, n_real: int,
                  solver: SolverSpec = CHOL, max_tries: int = 64):
     """set_k over the first n_real rows, returned in the buffer's layout:
     (hyp', (blockdiag(L, I),), invKys zero-padded, ok), at the buffer's
-    row count.  The factor is copied into a buffer of its own (on the
-    blocked route chol.cholesky's L is a view of the panel-padded
-    factor)."""
+    row count (a QR solver's factors each padded so, _pad_factor).  The
+    factor is copied into a buffer of its own (on the blocked route
+    chol.cholesky's L is a view of the panel-padded factor)."""
     cap = x_pad.shape[0]
     hyp, f, invKys, ok = set_k(kernel, hyp, x_pad[:n_real],
                                y_pad[:n_real], solver, max_tries)
     pad = cap - n_real
-    return (hyp, tuple(eye_pad(a, pad) for a in f),
+    return (hyp, tuple(_pad_factor(a, pad) for a in f),
             torch.cat([invKys, invKys.new_zeros(pad)]), ok)
+
+
+def _pad_factor(a, pad: int):
+    """A factor in the buffer's layout: a matrix as blockdiag(a, I), a
+    pivot permutation (qr_pivot's perm) extended by the pad rows'
+    identity."""
+    if a.ndim == 1:
+        return torch.cat([a, torch.arange(a.shape[0], a.shape[0] + pad,
+                                          device=a.device)])
+    return eye_pad(a, pad)
 
 
 def append_posterior_masked(kernel: KernelSpec, hyp, x_pad, y_pad,

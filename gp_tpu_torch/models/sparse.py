@@ -21,9 +21,10 @@ gp_tpu's closed-form VJP; the factors and solves are the library's
 (`cholesky_ex`, `cholesky_solve`, `solve_triangular`) on every device,
 with their own autograd (the blocked route's K3 leaves have no backward).
 
-Not carried: `_use_hosted_opt` and `_run_local_opt_guarded` (gp_tpu's
-route around its TPU runtime's execution watchdog; the port's optimizer
-is a host loop already), and `train_distributed`, ROADMAP module 14.
+`train_distributed` fits with the rows sharded over a 1-D mesh of
+processes (parallel/psparse.py).  Not carried: `_use_hosted_opt` and
+`_run_local_opt_guarded` (gp_tpu's route around its TPU runtime's
+execution watchdog; the port's optimizer is a host loop already).
 """
 
 from __future__ import annotations
@@ -242,9 +243,55 @@ class SparseGPBase(GPBase):
                                         init_hyps=init_hyps)
 
     def train_distributed(self, mesh, init_hyps=None) -> float:
-        raise NotImplementedError(
-            "train_distributed (rows sharded over devices, gp_tpu's "
-            "parallel/psparse.py) is ROADMAP module 14; it is not ported yet")
+        """MLE fit with the training rows sharded over the mesh axis "rows"
+        (parallel/psparse.py; gp_tpu sparse.py:148-200): per-process
+        (n_loc, M) panels and all_reduced sums.  The posterior comes back
+        replicated (M-sized), so every predict API serves it unchanged.
+        Every process of the mesh calls it with the same X, y; each returns
+        the same distributed NLL.  A mesh without a "rows" axis (gp_tpu's
+        2-D grid) raises: ROADMAP module 14, part 2."""
+        from ..parallel import psparse
+        from .base import to_opt_vec
+
+        if psparse.AXIS not in mesh.axis_names:
+            raise NotImplementedError(
+                f"a mesh with axes {mesh.axis_names}: the sparse models' "
+                f"distributed fit takes a 1-D 'rows' mesh; the grid routes "
+                f"are ROADMAP module 14, part 2")
+        self._refuse_noise_free()
+        self._check_envelope(n_dev=mesh.shape[psparse.AXIS])
+        self._reset_jitter()
+        if init_hyps is None:
+            init_hyps = self.get_default_hyps()
+        hyps = np.array(_np(init_hyps), np.float64)
+        lb, ub = self._std_bounds()
+        lb_v = to_opt_vec(self._tensor(lb), False)
+        ub_v = to_opt_vec(self._tensor(ub), False)
+        vec0 = torch.clamp(self._tensor(self._hyp_to_std(hyps)), lb_v, ub_v)
+        model = type(self).__name__.lower()
+        res = psparse.pfit_sparse(
+            model, self.kernel, False, self._x, self._ys, self._u,
+            self._tensor(self._jitter_std), vec0, lb_v, ub_v, mesh,
+            max_evals=self._MAX_EVAL)
+        # in original units (NLL_orig = NLL_std + N log sigma_y)
+        self.last_opt_result = res._replace(
+            f=res.f + self.num_train * float(np.log(self._y_sigma)))
+        self._hyps = self._tensor(self._hyp_from_std(
+            _np(res.x).astype(np.float64)))
+        Luu, LA, alpha, jitter, ok = psparse.pset_k_sparse(
+            model, self.kernel, self._hyps, self._x, self._y, self._u,
+            self._tensor(self._jitter_u), mesh)
+        if not ok:
+            raise RuntimeError(
+                "sparse distributed posterior factorization failed after "
+                "jitter escalation (pset_k_sparse exhausted max_tries); "
+                "refusing to cache a NaN posterior")
+        self._jitter_u = float(jitter)
+        self._post = (Luu, LA, alpha)
+        self._trained = True
+        return float(psparse.pnll_sparse(
+            model, self.kernel, self._hyps, self._x, self._y, self._u,
+            self._tensor(self._jitter_u), mesh))
 
     # -- the pipeline's hooks -------------------------------------------------
     def _nll_value(self, hyp):

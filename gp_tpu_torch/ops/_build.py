@@ -24,7 +24,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 # every kernel source of the package
-SOURCES = ("se_tile", "chol_block")
+SOURCES = ("se_tile", "chol_block", "qr_pivot")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

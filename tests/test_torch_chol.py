@@ -74,6 +74,8 @@ def test_chol_solver_spec_and_helpers():
     assert tb.add_diag(K, 0.5) is K
     np.testing.assert_array_equal(K.diagonal().numpy(), (d0 + 0.5).numpy())
     assert ts.get_solver("chol") is ts.CHOL
-    for name in ("qr", "qr_pivot"):
-        with pytest.raises(NotImplementedError, match="module 12"):
-            ts.get_solver(name)
+    # the QR strategies (module 12, tests/test_torch_qr.py) resolve by name
+    assert ts.get_solver("qr") is ts.QR
+    assert ts.get_solver("qr_pivot") is ts.get_solver("qrp") is ts.QR_PIVOT
+    with pytest.raises(ValueError, match="Unknown solver"):
+        ts.get_solver("lu")

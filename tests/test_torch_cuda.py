@@ -521,3 +521,102 @@ def test_stream_functions_card_match_cpu(cuda, monkeypatch, kernel, blocked):
         assert math.isclose(aux1[k], aux0[k], rel_tol=1e-9)
     assert torch.allclose(a1.cpu(), a0, rtol=1e-8,
                           atol=1e-8 * float(a0.abs().max()))
+
+
+@pytest.mark.parametrize("solver", ["qr", "qr_pivot"])
+def test_qr_objective_card_matches_cpu(cuda, solver):
+    """The QR strategies on the card against the CPU, float64: the NLL and
+    the analytic gradient (rtol 1e-9, the gradient relative to its largest
+    entry), K1 launched for the build; qr_pivot's pivots equal and its R
+    within 1e-9 of max |K| on an SPD matrix."""
+    import math
+    from gp_tpu_torch.models import exact
+    from gp_tpu_torch.ops.kernels import SE_ARD
+    from gp_tpu_torch.ops.qr_pivot import qr_pivot
+    from gp_tpu_torch.ops.solvers import get_solver
+    g = torch.Generator().manual_seed(5)
+    n, d = 300, 4
+    X = torch.rand(n, d, generator=g, dtype=torch.float64) * 4 - 2
+    y = torch.sin(2 * X[:, 0]) + 0.1 * torch.randn(n, generator=g,
+                                                     dtype=torch.float64)
+    hyp = torch.tensor([0.2] * d + [0.0, math.log(0.1), 0.0],
+                       dtype=torch.float64)
+    out = []
+    for dev in ("cpu", cuda):
+        se_tile.reset_launches()
+        args = [t.to(dev) for t in (hyp, X, y)]
+        out.append((exact.nll_raw(SE_ARD, *args, get_solver(solver)),
+                    exact.objective_vg(SE_ARD, False, *args,
+                                       get_solver(solver))))
+    assert se_tile.launches["se_matrix_diag"]["se"] == 2
+    (n0, (f0, g0)), (n1, (f1, g1)) = out
+    assert math.isclose(float(n1), float(n0), rel_tol=1e-9)
+    assert math.isclose(float(f1), float(f0), rel_tol=1e-9)
+    assert torch.allclose(g1.cpu(), g0, rtol=1e-9,
+                          atol=1e-9 * float(g0.abs().max()))
+    A = torch.randn(200, 200, generator=g, dtype=torch.float64)
+    A = A @ A.T + torch.eye(200, dtype=torch.float64)
+    Q0, R0, p0 = qr_pivot(A)
+    Q1, R1, p1 = qr_pivot(A.to(cuda))
+    assert torch.equal(p1.cpu(), p0)
+    assert float((R1.cpu() - R0).abs().max()) <= 1e-9 * float(A.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,dup", [(1, 0), (257, 0), (600, 0), (60, 20)])
+def test_qr_pivot_kernel_matches_plain(cuda, dtype, n, dup):
+    """csrc/qr_pivot.cu against qr_pivot_plain (the torch loop) on the
+    same card, one C call counted.  float64: the pivots equal (up to the
+    numerical rank when `dup` rows duplicate others), R and Q within 1e-11
+    of max |K|.  float32: the downdated norms carry rounding of ~eps times
+    the original norms, so once they fall to ~1e-4 of those, near-ties
+    order by the two sums' rounding (on the card the first n = 257 pivots
+    part at ~200): there the first n / 4 pivots are held equal, and both
+    factorizations to their backward error, Q R = K[:, p] and Q^T Q = I
+    within 1e-4."""
+    from gp_tpu_torch.ops import qr_pivot as qp
+    g = torch.Generator().manual_seed(n)
+    X = torch.randn(n, 3, generator=g, dtype=torch.float64)
+    if dup:
+        # n - dup points far enough apart that K's numerical rank is
+        # n - dup (an SE kernel of many close points loses rank sooner)
+        X = 3.0 * X
+        X[n - dup:] = X[:dup]
+    K = torch.exp(-0.5 * torch.cdist(X, X) ** 2)
+    if not dup:
+        K = K + 0.1 * torch.eye(n, dtype=torch.float64)
+    K = K.to(device=cuda, dtype=dtype)
+    qp.reset_launches()
+    Q, R, p = qp.qr_pivot(K)
+    assert qp.launches["qr_pivot"] == 1
+    Q0, R0, p0 = qp.qr_pivot_plain(K)
+    assert qp.launches["qr_pivot"] == 1
+    if dtype == torch.float32:
+        tol = 1e-4 * float(K.abs().max())
+        assert torch.equal(p[:n // 4], p0[:n // 4])
+        eye = torch.eye(n, dtype=dtype, device=cuda)
+        for q_, r_, p_ in ((Q, R, p), (Q0, R0, p0)):
+            assert float((q_ @ r_ - K[:, p_]).abs().max()) <= tol
+            assert float((q_.T @ q_ - eye).abs().max()) <= 1e-4
+        return
+    r = n - dup
+    tol = 1e-11 * float(K.abs().max())
+    assert torch.equal(p[:r], p0[:r])
+    assert float((R[:r, :r] - R0[:r, :r]).abs().max()) <= tol
+    assert float((Q[:, :r] - Q0[:, :r]).abs().max()) <= tol
+    assert float((Q @ R - K[:, p]).abs().max()) <= 10 * tol
+
+
+def test_distributed_objective_nccl_p1_matches_single(cuda):
+    """The distributed objective on a one-process NCCL mesh (block 256,
+    N = 700: identity padding) against the single-card objective, float64:
+    value rtol 1e-9, gradient 1e-7 of its largest entry; K2 launched one
+    time for the build and once per local block for the gradient."""
+    import numpy as np
+    from gp_tpu_torch.parallel.mesh import spawn
+    import torch_dist_programs as programs
+    f, g, f1, g1, launches = spawn(programs.nccl_objective, 1, "cuda",
+                                   300)[0]
+    assert abs(f - f1) <= 1e-9 * abs(f1)
+    assert np.max(np.abs(g - g1)) <= 1e-7 * np.max(np.abs(g1))
+    assert launches == 1 + 3           # N_pad = 768: 3 blocks of 256

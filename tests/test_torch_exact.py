@@ -287,11 +287,19 @@ def test_unported_paths_raise_not_implemented():
     from gp_tpu_torch import BucketedGP
     with pytest.raises(NotImplementedError, match="not carried"):
         BucketedGP(np.zeros((32768, 1)), np.zeros(32768), device="cpu")
-    with pytest.raises(NotImplementedError, match="module 12"):
-        TGP(np.zeros((4, 1)), np.zeros(4), solver="qr", device="cpu")
-    # the global search (module 7) is ported; the sparse models'
-    # distributed fit (module 14) is not
+    # the QR strategies (module 12) and the 1-D distributed layer (module
+    # 14, part 1) are ported (tests/test_torch_{qr,parallel}.py); a 2-D
+    # grid mesh (part 2) is not
+    assert TGP(np.zeros((4, 1)), np.zeros(4), solver="qr",
+               device="cpu").solver.name == "qr"
+
+    class Grid:
+        axis_names = ("rowg", "colg")
+        shape = {"rowg": 1, "colg": 1}
+
+    with pytest.raises(NotImplementedError, match="module 14, part 2"):
+        TGP(*_problem(n=20, d=3), device="cpu").train_distributed(Grid())
     from gp_tpu_torch import FITC
     ft = FITC(*_problem(n=20, d=3), device="cpu")
-    with pytest.raises(NotImplementedError, match="module 14"):
-        ft.train_distributed(None)
+    with pytest.raises(NotImplementedError, match="module 14, part 2"):
+        ft.train_distributed(Grid())

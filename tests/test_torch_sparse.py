@@ -227,8 +227,14 @@ def test_defaults_and_device(problem):
     assert b.dtype == torch.float64 and b.num_inducing == len(X)
     b.set_inducing(torch.tensor(U, dtype=torch.float32))
     assert b.inducing.dtype == torch.float64 and b.num_inducing == len(U)
-    with pytest.raises(NotImplementedError, match="module 14"):
-        b.train_distributed(None)
+    # the distributed fit takes a 1-D "rows" mesh (tests/test_torch_
+    # parallel.py); a grid mesh is module 14, part 2
+
+    class Grid:
+        axis_names = ("rowg", "colg")
+
+    with pytest.raises(NotImplementedError, match="module 14, part 2"):
+        b.train_distributed(Grid())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             FITC(X, y)
