@@ -139,6 +139,15 @@ line:
              posterior against the single card's, save_model ->
              load_model -> restore_distributed bit for bit, and
              FITC.train_distributed at N = 8000, M = 512
+  grid       GP.train_distributed on a ("rowg", "colg") grid (parallel/
+             pchol2d.py) at gp_tpu's grid_fit configuration (N = 16384,
+             d = 10) on grid_shape(min(cards, 4)) NCCL processes ((1, 1)
+             on one card): fit, seconds and K2 launches (2) an evaluation
+             beside the 1-D phase's and the single card's seconds, peak
+             memory, RMSE, the f64 objective and posterior against the
+             single card's, save_model -> load_model -> restore_distributed
+             and save_model_sharded -> load_model_sharded bit for bit, the
+             seconds of each save and load
   cli_gp, cli_fitc  train_x / train_y / test_x written by write_matrix,
              then `python -m gp_tpu_torch gp 8000` and `fitc 8000 512` as
              child processes (CLI_CHILD prints their launch counts): the
@@ -2839,6 +2848,189 @@ def phase_distributed(torch) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# The 2-D grid layer (module 14, part 2)
+# ---------------------------------------------------------------------------
+
+def grid_shape(P: int) -> tuple:
+    """The ("rowg", "colg") grid of P processes: (1, 1) on one card (gp_tpu's
+    record configuration), (2, 2) on four, (1, P) otherwise."""
+    return (2, 2) if P == 4 else (1, P)
+
+
+def _grid_rank(mesh, tmp: str) -> dict:
+    """One process's part of the grid phase (phase_grid); returns its
+    numbers, which the parent checks."""
+    import numpy as np
+    import torch
+    from gp_tpu_torch import GP
+    from gp_tpu_torch.models import exact
+    from gp_tpu_torch.ops import chol_block, se_tile
+    from gp_tpu_torch.parallel import pchol2d
+    from gp_tpu_torch.parallel.mesh import make_mesh_grid
+    from gp_tpu_torch.utils.checkpoint import (load_model,
+                                               load_model_sharded,
+                                               save_model_sharded)
+    from gp_tpu_torch.utils.synth import make_data
+
+    m = make_mesh_grid(*grid_shape(mesh.shape["rows"]))
+    g = pchol2d.grid_of(m)
+    out = {"rank": m.whole.index, "grid": [g.pr, g.pc], "rc": [g.r, g.c]}
+    X, y = make_data(DIST_N, d=DIST_D, seed=SEED)
+    Xte, yte = make_data(DIST_TEST_N, d=DIST_D, seed=DIST_TEST_SEED)
+
+    # the path: the fit, the posterior, the predictions
+    torch.cuda.reset_peak_memory_stats()
+    se_tile.reset_launches()
+    chol_block.reset_launches()
+    t0 = time.perf_counter()
+    gp = GP(X, y)
+    nll = gp.train_distributed(m)
+    torch.cuda.synchronize()
+    out["fit_s"] = time.perf_counter() - t0
+    out["nll"] = nll
+    out["evals"] = int(gp.last_opt_result.evals)
+    mu, s2 = gp.batch_predict(Xte)
+    s2g, gs2 = gp.batch_predict_s2_with_grad(Xte[:N_GRAD])
+    yg, gy = gp.batch_predict_y_with_grad(Xte[:N_GRAD])
+    torch.cuda.synchronize()
+    out["launches"] = _counts(se_tile, chol_block)
+    out["chol_launches"] = dict(chol_block.launches)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    out["finite"] = all(bool(torch.isfinite(t).all())
+                        for t in (mu, s2, s2g, gs2, yg, gy))
+    out["rmse"] = _rmse(mu.cpu().numpy(), yte)
+    out["rmse_const"] = _rmse(np.full_like(yte, y.mean()), yte)
+    out["hyp"] = gp.get_hyp().tolist()
+    _, block, L, _ = gp._post_dist
+    out["block"], out["local_tiles"] = block, list(L.shape)
+
+    # one evaluation at the fitted hyps: seconds and K2 launches
+    k2 = se_tile.launches["se_matrix"]["se"]
+    _, out["eval_s"] = _synced(torch, lambda: pchol2d.pnll_vg2d(
+        gp.kernel, gp._hyps, gp._x, gp._y, m, block))
+    out["k2_per_eval"] = se_tile.launches["se_matrix"]["se"] - k2
+
+    # float64 at the fitted hyps: the grid objective against the single
+    # card's, and both posteriors' predictions
+    def f64(model):
+        model._hyps = model._tensor(gp.get_hyp())
+        return model
+    d64, s64 = f64(GP(X, y, dtype="float64")), f64(GP(X, y, dtype="float64"))
+    (fd, gd), out["eval_f64_s"] = _synced(torch, lambda: pchol2d.pnll_vg2d(
+        d64.kernel, d64._hyps, d64._x, d64._y, m, block))
+    fs, gs = exact.nll_vg_raw(s64.kernel, s64._hyps, s64._x, s64._y)
+    out["f64_value_rel"] = abs(float(fd) - float(fs)) / abs(float(fs))
+    out["f64_grad_rel"] = float((gd - gs).abs().max() / gs.abs().max())
+    hd, Ld, ad, okd = pchol2d.pset_k2d(d64.kernel, d64._hyps, d64._x,
+                                       d64._y, m, block=block)
+    d64._hyps, d64._post_dist, d64._trained = hd, (m, block, Ld, ad), True
+    s64._update_posterior()
+    s64._trained = True
+    gaps = {}
+    for label, call in (("batch_predict", lambda md: md.batch_predict(Xte)),
+                        ("batch_predict_s2_with_grad",
+                         lambda md: md.batch_predict_s2_with_grad(
+                             Xte[:N_GRAD]))):
+        for i, (a, b) in enumerate(zip(call(d64), call(s64))):
+            gaps[f"{label}[{i}]"] = float((a - b).abs().max()
+                                          / b.abs().max())
+    out["pred_f64_rel"] = gaps
+    del d64, s64, Ld, hd, ad
+    torch.cuda.empty_cache()
+
+    # save_model (gathered to the grid's first process) -> load_model ->
+    # restore_distributed, and save_model_sharded -> load_model_sharded:
+    # the predictions bit for bit
+    path, shards = os.path.join(tmp, "grid.npz"), os.path.join(tmp, "shards")
+    _, out["save_s"] = _synced(torch, lambda: gp.save(path))
+    torch.distributed.barrier()
+    r, out["load_s"] = _synced(torch, lambda: load_model(path))
+    _, out["restore_s"] = _synced(torch, lambda: r.restore_distributed(m))
+    mu_r, s2_r = r.batch_predict(Xte)
+    out["checkpoint_bitwise"] = bool(torch.equal(mu_r, mu)
+                                     and torch.equal(s2_r, s2))
+    del r
+    _, out["save_sharded_s"] = _synced(torch, lambda: save_model_sharded(
+        gp, shards))
+    r, out["load_sharded_s"] = _synced(torch, lambda: load_model_sharded(
+        shards, m))
+    mu_r, s2_r = r.batch_predict(Xte)
+    out["sharded_bitwise"] = bool(torch.equal(mu_r, mu)
+                                  and torch.equal(s2_r, s2))
+    out["file_bytes"] = os.path.getsize(path) if out["rank"] == 0 else None
+    return out
+
+
+def _grid_k2_record(torch, se_tile, res) -> dict:
+    """K2 at the grid build's shape, the first process's (nbr B, nbc B)
+    tiles x d, float32, at the fitted hyps."""
+    from gp_tpu_torch.utils.synth import make_data
+    X, _ = make_data(DIST_N, d=DIST_D, seed=SEED)
+    nbr, nbc, B, _ = res["local_tiles"]
+    pr, pc = res["grid"]
+    h = torch.tensor(res["hyp"], dtype=torch.float32, device="cuda")
+    x = torch.zeros((nbr * B * pr, DIST_D), dtype=torch.float32,
+                    device="cuda")
+    x[:DIST_N] = torch.tensor(X, dtype=torch.float32, device="cuda")
+    xb = x.view(nbr, pr, B, DIST_D)[:, 0].reshape(-1, DIST_D)
+    xc = x.view(nbc, pc, B, DIST_D)[:, 0].reshape(-1, DIST_D)
+    return _k2_record(torch, se_tile, xb, xc, torch.exp(-h[:DIST_D]),
+                      torch.exp(2 * h[DIST_D]))
+
+
+def phase_grid(torch, distributed: dict) -> dict:
+    """GP.train_distributed on a ("rowg", "colg") grid (parallel/pchol2d.py)
+    at gp_tpu's grid_fit configuration (benchmarks/big_fit.py:339-377:
+    N = 16384, d = 10, held out make_data(2000, 10, seed=7)), float32,
+    from the defaults, on grid_shape(min(cards, 4)) NCCL processes: the
+    launch counts set to 0 in each process just before its model is built
+    and read after the predictions.  Checks, in each process: RMSE below
+    0.6 of the constant predictor's; every process the same NLL; at the
+    fitted hyps the float64 grid NLL within 1e-9 (relative) of the single
+    card's nll_vg_raw and its gradient within 1e-7 of the largest entry;
+    the float64 grid posterior's batch_predict and
+    batch_predict_s2_with_grad within DIST_PRED_TOL of the single card's;
+    save_model -> load_model -> restore_distributed and
+    save_model_sharded -> load_model_sharded predictions bit for bit; K2
+    twice an evaluation (the tile build and its rebuild under autograd),
+    no K1, K3, K4 or K5 on the path.  The 1-D distributed phase's and the
+    single card's seconds an evaluation are printed beside the grid's."""
+    import tempfile
+    from gp_tpu_torch.parallel.mesh import spawn
+
+    P = min(torch.cuda.device_count(), 4)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        outs = spawn(_grid_rank, P, "cuda", DIST_TIMEOUT, (tmp,))
+        wall = time.perf_counter() - t0
+    r0 = outs[0]
+    res = {"processes": P, "phase_s": wall, **r0,
+           "eval_s_distributed_1d": distributed["eval_s"],
+           "eval_s_single_card": distributed["eval_single_card_s"],
+           "processes_1d": distributed["processes"]}
+    emit("grid", **res)
+    for r in outs:
+        tag = f"rank {r['rank']}"
+        check(r["nll"] == r0["nll"], f"{tag}: NLL {r['nll']} != {r0['nll']}")
+        check(r["finite"], f"{tag}: non-finite predictions")
+        check(r["rmse"] < 0.6 * r["rmse_const"], f"{tag}: RMSE {r['rmse']} "
+              f"not below 0.6 of the constant predictor's {r['rmse_const']}")
+        check(r["f64_value_rel"] <= 1e-9 and r["f64_grad_rel"] <= 1e-7,
+              f"{tag}: f64 grid objective off the single card's: "
+              f"{r['f64_value_rel']}, {r['f64_grad_rel']}")
+        check(max(r["pred_f64_rel"].values()) <= DIST_PRED_TOL,
+              f"{tag}: grid predictions off: {r['pred_f64_rel']}")
+        check(r["checkpoint_bitwise"] and r["sharded_bitwise"],
+              f"{tag}: a restored grid posterior differs")
+        n = r["launches"]
+        check(n["k2"] > 0 and n["k1"] == 0 and n["k3"] == 0
+              and n["other"] == 0, f"{tag}: launches {n}")
+        check(r["k2_per_eval"] == 2, f"{tag}: {r['k2_per_eval']} K2 launches "
+              f"an evaluation, not 2")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2895,6 +3087,7 @@ def main() -> int:
                         sparse["FITC"]["model"])
         qr = phase_qr_solvers(torch, Xtr, ytr, Xte, yte)
         distributed = phase_distributed(torch)
+        grid = phase_grid(torch, distributed)
         stream = {"stream_at_golden": phase_stream_at_golden(torch),
                   "stream_fit": phase_stream_fit(torch)}
         src = "gp_tpu_torch/csrc/se_tile.cu"
@@ -3097,6 +3290,12 @@ def main() -> int:
             device_ms=rec["device_ms"], form="se",
             shape=[rec["m"], rec["n"], rec["d"]], dtype="float32",
             per_evaluation=distributed["k2_per_eval"]))
+        rec = _grid_k2_record(torch, se_tile, grid)
+        kernels.append(row(
+            "se_tile", src, "gp_tpu/ops/pallas_kernels.py:71", rec,
+            grid["launches"]["k2"], "grid", device_ms=rec["device_ms"],
+            form="se", shape=[rec["m"], rec["n"], rec["d"]],
+            dtype="float32", per_evaluation=grid["k2_per_eval"]))
         rec = sparse["FITC"]["k2"]["kxu"]
         kernels.append(row(
             "se_tile", src, "gp_tpu/ops/pallas_kernels.py:71", rec,

@@ -59,8 +59,7 @@ search (lbfgsb_hosted, mvmo_search_hosted, multistart_lbfgsb_hosted, the
 TPU runtime's watchdog: lbfgsb_impl and the search already run one
 evaluation per host step).  Nor are gp_tpu's far-pad decoy branch
 (exact.py:218-309), which avoids XLA:TPU's pad and slice costs (every
-spec pads once instead), and gp_tpu's 2-D grid route of the distributed
-layer (pchol2d, multihost: ROADMAP module 14, part 2).
+spec pads once instead).
 """
 
 from __future__ import annotations
@@ -687,8 +686,8 @@ class GP(GPBase):
     CPU in float64.  `solver` selects the MatrixSolver strategy ("chol",
     "qr", "qr_pivot"), as GP::MatrixDecomp (GP.h:22-26).  From
     _STREAM_MIN_N rows the Cholesky solver takes gp_tpu's stream regime
-    (the module docstring).  train_distributed fits on a 1-D mesh of
-    processes (parallel/pgp.py).
+    (the module docstring).  train_distributed fits on a 1-D mesh or a
+    2-D grid of processes (parallel/pgp.py, parallel/pchol2d.py).
     """
 
     _MAX_EVAL = 160
@@ -818,27 +817,23 @@ class GP(GPBase):
             return self._post_dist[3]
         return self._post[-1]
 
-    # -- distributed training and serving (parallel/pgp.py) ----------------
+    # -- distributed training and serving (parallel/pgp.py, pchol2d.py) -----
     @staticmethod
     def _is_grid_mesh(mesh) -> bool:
         return {"rowg", "colg"} <= set(mesh.axis_names)
 
-    @staticmethod
-    def _refuse_grid(mesh) -> None:
-        if GP._is_grid_mesh(mesh):
-            raise NotImplementedError(
-                "a ('rowg', 'colg') grid mesh (gp_tpu's parallel/pchol2d.py "
-                "and multihost.py) is ROADMAP module 14, part 2; it is not "
-                "ported yet: use a 1-D 'rows' mesh (parallel.mesh.make_mesh)")
-
     def train_distributed(self, mesh, block: int | None = None,
                           init_hyps=None) -> float:
-        """MLE fit with the N x N kernel matrix block-cyclic over the mesh
-        axis "rows" (gp_tpu exact.py:1141-1291): the distributed blocked
-        Cholesky and the reduced analytic gradient (parallel/pgp.py),
-        optimized in the standardized space as train() is.  The posterior
-        stays sharded (this process's row blocks of L, and invKys), and
-        the predict APIs serve from it.
+        """MLE fit with the N x N kernel matrix sharded over the mesh
+        (gp_tpu exact.py:1141-1291), optimized in the standardized space
+        as train() is.  On a 1-D "rows" mesh: the block-cyclic Cholesky
+        and the reduced analytic gradient (parallel/pgp.py).  On a
+        ("rowg", "colg") grid (parallel/pchol2d.py) every step stays on
+        the grid: the fit (pfit2d), the posterior with every rescue
+        attempt (pset_k2d), the predictions (ppredict2d*) and the
+        returned NLL (pnll2d).  The posterior stays sharded (this
+        process's factor rows or tiles, and invKys), and the predict APIs
+        serve from it.
 
         Every process of the mesh calls it with the same X, y (and
         init_hyps), and every process returns the same final NLL (the
@@ -846,11 +841,17 @@ class GP(GPBase):
         a default start is probed against the subset-MLE warm start, as
         gp_tpu probes it: two distributed evaluations, the warm hyps
         broadcast from the mesh's first process.  block=None takes
-        pchol.auto_block.  A 2-D grid mesh raises (module 14, part 2)."""
-        from ..parallel import pchol, pgp
+        pchol.auto_block over the mesh's processes."""
+        from ..parallel import pchol, pchol2d, pgp
 
-        self._refuse_grid(mesh)
-        ax = mesh.axis(pgp.AXIS)
+        grid = self._is_grid_mesh(mesh)
+        if grid:
+            pnll_vg, pfit, pset_k = (pchol2d.pnll_vg2d, pchol2d.pfit2d,
+                                     pchol2d.pset_k2d)
+            ax = mesh.whole
+        else:
+            pnll_vg, pfit, pset_k = pgp.pnll_vg, pgp.pfit, pgp.pset_k
+            ax = mesh.axis(pgp.AXIS)
         used_defaults = init_hyps is None
         if init_hyps is None:
             init_hyps = self.get_default_hyps()
@@ -861,8 +862,8 @@ class GP(GPBase):
             block = pchol.auto_block(self.num_train, ax.size)
 
         def dist_nll(h):
-            f, _ = pgp.pnll_vg(self.kernel, self._tensor(h), self._x,
-                               self._y, mesh, block=block)
+            f, _ = pnll_vg(self.kernel, self._tensor(h), self._x, self._y,
+                           mesh, block=block)
             return float(f)
 
         if used_defaults and self.num_train >= _STREAM_MIN_N:
@@ -883,15 +884,15 @@ class GP(GPBase):
         ub_v = to_opt_vec(torch.from_numpy(ub), nf).numpy()
         vec0 = np.clip(to_opt_vec(torch.from_numpy(self._hyp_to_std(hyps)),
                                   nf).numpy(), lb_v, ub_v)
-        res = pgp.pfit(self.kernel, nf, self._x, self._ys, self._tensor(vec0),
-                       self._tensor(lb_v), self._tensor(ub_v), mesh,
-                       block=block, max_evals=self._MAX_EVAL)
+        res = pfit(self.kernel, nf, self._x, self._ys, self._tensor(vec0),
+                   self._tensor(lb_v), self._tensor(ub_v), mesh, block=block,
+                   max_evals=self._MAX_EVAL)
         self.last_opt_result = res._replace(
             f=res.f + self.num_train * float(np.log(self._y_sigma)))
         self._hyps = self._tensor(self._hyp_from_std(
             _np(from_opt_vec(res.x, nf)).astype(np.float64)))
-        hyp, L, invKys, ok = pgp.pset_k(self.kernel, self._hyps, self._x,
-                                        self._y, mesh, block=block)
+        hyp, L, invKys, ok = pset_k(self.kernel, self._hyps, self._x,
+                                    self._y, mesh, block=block)
         if not ok:
             raise RuntimeError(
                 "distributed posterior factorization failed after noise "
@@ -902,50 +903,72 @@ class GP(GPBase):
         self._post_aux = None
         self._post_dist = (mesh, block, L, invKys)
         self._trained = True
+        if grid:
+            return float(pchol2d.pnll2d(self.kernel, self._hyps, self._x,
+                                        self._y, mesh, block=block))
         return dist_nll(_np(self._hyps))
 
     def restore_distributed(self, mesh, block=None):
         """Attach a distributed posterior read from a checkpoint
-        (utils/checkpoint stores the gathered block-cyclic L and invKys
-        with their layout): the mesh's "rows" axis must have the
-        checkpoint's process count.  Each process keeps its own rows."""
-        from ..parallel import pchol, pgp
+        (utils/checkpoint stores the gathered L and invKys with their
+        layout): a 1-D file needs a "rows" axis of the checkpoint's
+        process count, a grid file a ("rowg", "colg") grid of its
+        (Pr, Pc) shape; else ValueError.  Each process keeps its own rows
+        or tiles."""
+        from ..parallel import pchol, pchol2d, pgp
 
-        self._refuse_grid(mesh)
         if self._post_dist_pending is None:
             raise ValueError("no pending distributed posterior to restore")
-        n_dev, blk, L_np, invKys_np = self._post_dist_pending
-        ax = mesh.axis(pgp.AXIS)
-        if ax.size != n_dev:
-            raise ValueError(
-                f"checkpointed posterior is blocked for {n_dev} devices on "
-                f"axis '{pgp.AXIS}'; mesh has axes {mesh.axis_names} shape "
-                f"{dict(mesh.shape)}")
+        layout, blk, L_np, invKys_np = self._post_dist_pending
+        if isinstance(layout, tuple):
+            pr, pc = layout
+            if not self._is_grid_mesh(mesh):
+                raise ValueError(
+                    f"checkpointed posterior is blocked for a ({pr}, {pc}) "
+                    f"('rowg', 'colg') grid; mesh axes are "
+                    f"{mesh.axis_names}")
+            g = pchol2d.grid_of(mesh)
+            if (g.pr, g.pc) != (pr, pc):
+                raise ValueError(
+                    f"checkpointed posterior is blocked for a ({pr}, {pc}) "
+                    f"grid; mesh is ({g.pr}, {g.pc})")
+            L = pchol2d.local_tiles(L_np, g.r, g.c)
+        else:
+            if self._is_grid_mesh(mesh) or pgp.AXIS not in mesh.axis_names \
+                    or mesh.shape[pgp.AXIS] != layout:
+                raise ValueError(
+                    f"checkpointed posterior is blocked for {layout} "
+                    f"devices on axis '{pgp.AXIS}'; mesh has axes "
+                    f"{mesh.axis_names} shape {dict(mesh.shape)}")
+            L = torch.from_numpy(np.ascontiguousarray(
+                pchol.local_rows(L_np, mesh.axis(pgp.AXIS))))
         self._post_dist = (mesh, blk if block is None else block,
-                           self._tensor(pchol.local_rows(L_np, ax)),
-                           self._tensor(invKys_np))
+                           self._tensor(L), self._tensor(invKys_np))
         self._post_dist_pending = None
         self._post = None
         self._trained = True
 
-    def _ppredict_with_grad_dist(self, xs):
-        from ..parallel import pgp
+    def _ppredict_dist(self, xs, with_grad: bool):
+        from ..parallel import pchol2d, pgp
         mesh, block, L, invKys = self._post_dist
-        return pgp.ppredict_with_grad(self.kernel, self._hyps, self._x, L,
-                                      invKys, self._as_batch(xs), mesh,
-                                      block=block)
+        xs = self._as_batch(xs)
+        if self._is_grid_mesh(mesh):
+            fn = (pchol2d.ppredict2d_with_grad if with_grad
+                  else pchol2d.ppredict2d)
+            return fn(self.kernel, self._hyps, self._x, L, invKys, xs, mesh)
+        fn = pgp.ppredict_with_grad if with_grad else pgp.ppredict
+        return fn(self.kernel, self._hyps, self._x, L, invKys, xs, mesh,
+                  block=block)
 
     # -- prediction API (GP.h:104-119); tensors on the model's device --------
     # In the stream regime the variance paths refactor; the mean paths
     # read the cached invKys (gp_tpu exact.py:1353-1416).  A distributed
-    # posterior serves through parallel/pgp.py (exact.py:1337-1410).
+    # posterior serves through parallel/pgp.py or, on a grid, through
+    # parallel/pchol2d.py (exact.py:1334-1410).
     def batch_predict(self, xs):
         self._require_trained()
         if self._post_dist is not None:
-            from ..parallel import pgp
-            mesh, block, L, invKys = self._post_dist
-            return pgp.ppredict(self.kernel, self._hyps, self._x, L, invKys,
-                                self._as_batch(xs), mesh, block=block)
+            return self._ppredict_dist(xs, False)
         if self._in_stream_regime():
             return predict_streamed(self.kernel, self._hyps, self._x,
                                     self._inv_kys(), self._as_batch(xs))
@@ -967,7 +990,7 @@ class GP(GPBase):
     def batch_predict_y_with_grad(self, xs):
         self._require_trained()
         if self._post_dist is not None:
-            y, gy, _, _ = self._ppredict_with_grad_dist(xs)
+            y, gy, _, _ = self._ppredict_dist(xs, True)
             return y, gy
         return predict_y_with_grad(self.kernel, self._hyps, self._x,
                                    self._inv_kys(), self._as_batch(xs))
@@ -975,7 +998,7 @@ class GP(GPBase):
     def batch_predict_s2_with_grad(self, xs):
         self._require_trained()
         if self._post_dist is not None:
-            _, _, s2, gs2 = self._ppredict_with_grad_dist(xs)
+            _, _, s2, gs2 = self._ppredict_dist(xs, True)
             return s2, gs2
         if self._in_stream_regime():
             return predict_s2_with_grad_streamed(

@@ -248,16 +248,16 @@ class SparseGPBase(GPBase):
         (n_loc, M) panels and all_reduced sums.  The posterior comes back
         replicated (M-sized), so every predict API serves it unchanged.
         Every process of the mesh calls it with the same X, y; each returns
-        the same distributed NLL.  A mesh without a "rows" axis (gp_tpu's
-        2-D grid) raises: ROADMAP module 14, part 2."""
+        the same distributed NLL.  A mesh without a "rows" axis (a 2-D
+        grid: gp_tpu's sparse models have no grid route) raises
+        ValueError."""
         from ..parallel import psparse
         from .base import to_opt_vec
 
         if psparse.AXIS not in mesh.axis_names:
-            raise NotImplementedError(
+            raise ValueError(
                 f"a mesh with axes {mesh.axis_names}: the sparse models' "
-                f"distributed fit takes a 1-D 'rows' mesh; the grid routes "
-                f"are ROADMAP module 14, part 2")
+                f"distributed fit takes a 1-D 'rows' mesh")
         self._refuse_noise_free()
         self._check_envelope(n_dev=mesh.shape[psparse.AXIS])
         self._reset_jitter()

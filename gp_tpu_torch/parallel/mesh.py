@@ -8,16 +8,22 @@ multi-process mode, parallel/multihost.py): NCCL between CUDA cards, gloo
 on the CPU.  A Mesh names its axes as gp_tpu's do:
 
   "rows"    block-rows of the N x N kernel matrix (parallel/pchol.py);
-  "starts"  hyperparameter restarts (parallel/pgp.pfit_multistart).
+  "starts"  hyperparameter restarts (parallel/pgp.pfit_multistart);
+  "rowg", "colg"  the 2-D block grid (parallel/pchol2d.py): "rowg" runs
+            down a grid column, "colg" along a grid row.
 
 `mesh.shape[axis]` is the axis' size and `mesh.axis(name)` this process's
 handle on it (its group, its index along the axis and the group's global
-ranks), what a shard_map body reads through axis_name.
+ranks), what a shard_map body reads through axis_name.  `mesh.whole` is
+the handle on all of the mesh's processes at once (the group of a
+reduction over every axis, and of a broadcast from one process to all).
 
 Starting the processes: under torchrun (env://) call
-torch.distributed.init_process_group("nccl" or "gloo") in each process,
-then make_mesh(); or let `spawn(fn, world_size, device)` start world_size
-processes on this host, each running fn(mesh, *args).
+torch.distributed.init_process_group("nccl" or "gloo") in each process
+(parallel.multihost.initialize does), then make_mesh() or
+make_mesh_grid(pr, pc); or let `spawn(fn, world_size, device)` start
+world_size processes on this host, each running fn(mesh, *args) on the
+1-D mesh (a grid program builds its grid inside fn).
 
 Not carried: `replicated` and `row_sharded` (NamedSharding placements: a
 process holds its own shard, there is no global array to place).
@@ -48,13 +54,16 @@ class Axis(NamedTuple):
 
 
 class Mesh:
-    """A 1-D or 2-D grid of processes, one device each."""
+    """A 1-D or 2-D grid of processes, one device each.  `whole` is the
+    handle on all of its processes (a 1-D mesh's one axis)."""
 
-    def __init__(self, axes: list, device: torch.device):
+    def __init__(self, axes: list, device: torch.device,
+                 whole: Axis | None = None):
         self.axes = {a.name: a for a in axes}
         self.axis_names = tuple(a.name for a in axes)
         self.shape = {a.name: a.size for a in axes}
         self.device = device
+        self.whole = axes[0] if whole is None else whole
 
     def axis(self, name: str) -> Axis:
         try:
@@ -119,7 +128,44 @@ def make_mesh_2d(n_starts: int, n_rows: int) -> Mesh:
     return Mesh([Axis("starts", start_groups[q], n_starts, s,
                       tuple(grid[:, q].tolist())),
                  Axis("rows", row_groups[s], n_rows, q,
-                      tuple(grid[s].tolist()))], _rank_device())
+                      tuple(grid[s].tolist()))], _rank_device(),
+                _whole(grid.size, rank))
+
+
+def _whole(n: int, rank: int) -> Axis:
+    """The axis over the first n processes; made by every process (a
+    group of the first n is a new_group call on each), its handle valid
+    on the first n."""
+    group = (dist.group.WORLD if n == dist.get_world_size()
+             else dist.new_group(list(range(n))))
+    return Axis("whole", group, n, rank, tuple(range(n)))
+
+
+def make_mesh_grid(pr: int, pc: int) -> Mesh:
+    """2-D ("rowg", "colg") grid of pr x pc processes, gp_tpu's
+    Mesh(devs.reshape(pr, pc), ("rowg", "colg")): process r sits at
+    (r // pc, r % pc).  Its "colg" axis is its grid row (ranks r pc ...
+    r pc + pc - 1, index its column), its "rowg" axis its grid column
+    (index its row).  Every process of the default group calls it: each
+    creates every row group and every column group, in the same order, as
+    torch.distributed.new_group requires; one outside the first pr pc
+    gets a ValueError."""
+    _require_init()
+    rank = dist.get_rank()
+    if pr < 1 or pc < 1 or pr * pc > dist.get_world_size():
+        raise ValueError(f"a ({pr}, {pc}) grid needs {pr * pc} processes, "
+                         f"have {dist.get_world_size()}")
+    grid = np.arange(pr * pc).reshape(pr, pc)
+    row_groups = [dist.new_group(grid[r].tolist()) for r in range(pr)]
+    col_groups = [dist.new_group(grid[:, c].tolist()) for c in range(pc)]
+    whole = _whole(grid.size, rank)
+    if rank >= grid.size:
+        raise ValueError(f"process {rank} is not in the ({pr}, {pc}) grid")
+    r, c = divmod(rank, pc)
+    return Mesh([Axis("rowg", col_groups[c], pr, r,
+                      tuple(grid[:, c].tolist())),
+                 Axis("colg", row_groups[r], pc, c,
+                      tuple(grid[r].tolist()))], _rank_device(), whole)
 
 
 # --------------------------------------------------------------------------

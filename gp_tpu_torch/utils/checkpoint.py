@@ -26,17 +26,24 @@ A stream-regime GP (N >= 32768) caches no factor: its posterior is
 as gp_tpu writes them (checkpoint.py:100-105, 152); its variance
 predictions refactor after a load.
 
-A distributed posterior (parallel/pgp.py, a 1-D "rows" mesh) is gathered
-to the mesh's first process in gp_tpu's layout and meta (dist_L as
-(nbl, P, B, N_pad), dist_invKys, dist_n_dev, dist_block;
-checkpoint.py:37-80); load_model leaves it pending until
-`model.restore_distributed(mesh)` on a mesh of as many processes
-(checkpoint.py:150-158).
+A distributed posterior is gathered to the mesh's first process in
+gp_tpu's layout and meta (checkpoint.py:37-80): dist_L as (nbl, P, B,
+N_pad) with dist_n_dev from a 1-D "rows" mesh (parallel/pgp.py), as
+(Pr, Pc, nbr, nbc, B, B) with dist_grid = [Pr, Pc] from a ("rowg",
+"colg") grid (parallel/pchol2d.py), and dist_invKys, dist_block.
+load_model leaves it pending until `model.restore_distributed(mesh)` on
+a mesh of the same layout (checkpoint.py:150-158).
 
-Not carried: a 2-D grid posterior (dist_grid, gp_tpu's pchol2d) and the
-sharded checkpoint (save_model_sharded / load_model_sharded,
-checkpoint.py:179-339) are ROADMAP module 14, part 2; a file that holds a
-grid posterior raises.
+The sharded checkpoint (save_model_sharded / load_model_sharded, gp_tpu's
+format "gp_tpu-sharded-v1", checkpoint.py:179-339) writes no gather: a
+directory with meta.npz (process 0: meta, x, y, hyps, invKys, key) and
+one shards_p{rank}.npz a process (data_i, start_i, stop_i: its block of
+L and the block's index bounds in gp_tpu's global shape, sliced on axis
+1 of (nbl, P, B, N_pad) or axes 0 and 1 of (Pr, Pc, nbr, nbc, B, B)).
+A gp_tpu job writes all of its devices' shards into shards_p0.npz, so
+the loader finds its block by its bounds in whichever file holds it; npz
+members load lazily, so a process decompresses only its own block's
+data.
 """
 
 from __future__ import annotations
@@ -70,28 +77,42 @@ def _post_tensor(a: np.ndarray, model):
     return t.to(device=model.device, dtype=torch.int64)
 
 
-def _gather_dist(model):
-    """(L (nbl, P, B, N_pad) in gp_tpu's global layout, invKys) of a
-    distributed posterior, gathered to the mesh's first process (None
-    elsewhere)."""
-    import torch.distributed as dist
+def _layout(mesh) -> dict:
+    """gp_tpu's layout record of a distributed posterior's mesh:
+    {"grid": [Pr, Pc]} or {"n_dev": P}."""
+    if {"rowg", "colg"} <= set(mesh.axis_names):
+        return {"grid": [mesh.shape["rowg"], mesh.shape["colg"]]}
     from ..parallel.pgp import AXIS
+    return {"n_dev": mesh.shape[AXIS]}
+
+
+def _gather_dist(model):
+    """(L in gp_tpu's global layout, (nbl, P, B, N_pad) or (Pr, Pc, nbr,
+    nbc, B, B), invKys) of a distributed posterior, gathered to the
+    mesh's first process (None elsewhere)."""
+    import torch.distributed as dist
     mesh, _, L, invKys = model._post_dist
-    ax = mesh.axis(AXIS)
-    parts = ([torch.empty_like(L) for _ in range(ax.size)]
-             if ax.index == 0 else None)
+    grid = "grid" in _layout(mesh)
+    ax = mesh.whole if grid else mesh.axis("rows")
+    parts = ([torch.empty(L.shape, dtype=L.dtype, device=L.device)
+              for _ in range(ax.size)] if ax.index == 0 else None)
     dist.gather(L.contiguous(), parts, dst=ax.ranks[0], group=ax.group)
     if ax.index:
         return None
-    return _np(torch.stack(parts, dim=1)), _np(invKys)
+    if grid:
+        Lg = torch.stack(parts).reshape(mesh.shape["rowg"],
+                                        mesh.shape["colg"], *L.shape)
+    else:
+        Lg = torch.stack(parts, dim=1)
+    return _np(Lg), _np(invKys)
 
 
 def save_model(model, path: str) -> None:
     """Serialize a (possibly trained) model to `path` (.npz).  A
-    distributed posterior is gathered in gp_tpu's layout (dist_L as
-    (nbl, P, B, N_pad), dist_invKys; meta dist_n_dev, dist_block): every
-    process of its mesh calls save_model, and the mesh's first process
-    writes the file."""
+    distributed posterior is gathered in gp_tpu's layout (dist_L,
+    dist_invKys; meta dist_n_dev or dist_grid, dist_block): every process
+    of its mesh calls save_model, and the mesh's first process writes the
+    file."""
     trained = model._trained
     dist_post = model._post_dist
     gathered = None
@@ -124,9 +145,9 @@ def save_model(model, path: str) -> None:
         arrays["inducing"] = _np(model._u)
         meta["jitter_u"] = float(model._jitter_u)
     if gathered is not None:
-        from ..parallel.pgp import AXIS
         arrays["dist_L"], arrays["dist_invKys"] = gathered
-        meta["dist_n_dev"] = int(dist_post[0].shape[AXIS])
+        meta.update({f"dist_{k}": v
+                     for k, v in _layout(dist_post[0]).items()})
         meta["dist_block"] = int(dist_post[1])
     if trained and model._post is not None:
         for i, a in enumerate(model._post):
@@ -140,6 +161,29 @@ def save_model(model, path: str) -> None:
     np.savez_compressed(path, meta=json.dumps(meta), **arrays)
 
 
+def _model(meta: dict, z, device):
+    """The model that meta and the arrays z (x, y, key, hyps, inducing,
+    draws_state) describe, without its posterior."""
+    key = z["key"].astype(np.uint64)
+    state = {"model": meta["model"], "x": z["x"], "y": z["y"],
+             "kernel": meta["kernel"], "dtype": meta["dtype"],
+             "solver": meta.get("solver", "chol"),
+             "noise_free": meta["noise_free"],
+             "noise_lb": meta["noise_lb"],
+             "seed": int(key[0]) << 32 | int(key[1])}
+    for k in ("bucket", "jitter_u"):
+        if k in meta:
+            state[k] = meta[k]
+    for k in ("hyps", "inducing"):
+        if k in z:
+            state[k] = z[k]
+    model = model_from_state(state, device)
+    model._fixhyps = meta["fixhyps"]
+    if "draws_state" in z:
+        model.draws.gen.set_state(torch.from_numpy(z["draws_state"]))
+    return model
+
+
 def load_model(path: str, device=None):
     """The model saved by `save_model`, of either package, with its
     posterior cache intact: no refactorization.  On CUDA unless `device`
@@ -150,50 +194,135 @@ def load_model(path: str, device=None):
             raise ValueError(
                 f"checkpoint format {meta['format_version']} is newer than "
                 f"this library ({_FORMAT_VERSION})")
-        if "dist_grid" in meta:
-            raise NotImplementedError(
-                "the checkpoint holds a 2-D grid posterior (gp_tpu's "
-                "pchol2d): ROADMAP module 14, part 2, not ported yet")
-        key = z["key"].astype(np.uint64)
-        state = {"model": meta["model"], "x": z["x"], "y": z["y"],
-                 "kernel": meta["kernel"], "dtype": meta["dtype"],
-                 "solver": meta.get("solver", "chol"),
-                 "noise_free": meta["noise_free"],
-                 "noise_lb": meta["noise_lb"],
-                 "seed": int(key[0]) << 32 | int(key[1])}
-        for k in ("bucket", "jitter_u"):
-            if k in meta:
-                state[k] = meta[k]
-        for k in ("hyps", "inducing"):
-            if k in z:
-                state[k] = z[k]
-        model = model_from_state(state, device)
-        model._fixhyps = meta["fixhyps"]
+        model = _model(meta, z, device)
         if meta["trained"] and "num_post" in meta:
             model._post = tuple(_post_tensor(z[f"post_{i}"], model)
                                 for i in range(meta["num_post"]))
             model._trained = True
         model._post_aux = meta.get("post_aux")
-        if meta["trained"] and "dist_n_dev" in meta:
+        if meta["trained"] and ("dist_n_dev" in meta or "dist_grid" in meta):
             # attached by restore_distributed(mesh) on every process
-            model._post_dist_pending = (
-                meta["dist_n_dev"], meta["dist_block"], z["dist_L"],
-                z["dist_invKys"])
+            layout = (tuple(meta["dist_grid"]) if "dist_grid" in meta
+                      else meta["dist_n_dev"])
+            model._post_dist_pending = (layout, meta["dist_block"],
+                                        z["dist_L"], z["dist_invKys"])
             model._trained = True
-        if "draws_state" in z:
-            model.draws.gen.set_state(torch.from_numpy(z["draws_state"]))
     return model
 
 
+_SHARDED = "gp_tpu-sharded-v1"
+
+
+def _block_bounds(mesh, local: tuple):
+    """(this process's rank on the mesh, gp_tpu's global shape of L, and
+    the index bounds of this process's block in it), from the shape of
+    its local L: (nbr, nbc, B, B) on a grid, (nbl, B, N_pad) on "rows"."""
+    if "grid" in _layout(mesh):
+        from ..parallel.pchol2d import grid_of
+        g = grid_of(mesh)
+        return (mesh.whole.index, (g.pr, g.pc, *local),
+                [g.r, g.c, 0, 0, 0, 0], [g.r + 1, g.c + 1, *local])
+    ax = mesh.axis("rows")
+    nbl, B, n_pad = local
+    return (ax.index, (nbl, ax.size, B, n_pad), [0, ax.index, 0, 0],
+            [nbl, ax.index + 1, B, n_pad])
+
+
 def save_model_sharded(model, dirpath: str) -> None:
-    """gp_tpu's sharded checkpoint (each process's own shards, no gather;
-    checkpoint.py:179-339) is ROADMAP module 14, part 2."""
-    raise NotImplementedError(
-        "save_model_sharded is ROADMAP module 14, part 2, not ported yet; "
-        "save_model gathers a 1-D distributed posterior")
+    """Checkpoint a GP's distributed posterior without a gather, in
+    gp_tpu's sharded format (the module docstring): each process writes
+    shards_p{rank}.npz with its own block of L, process 0 writes
+    meta.npz.  Every process of the mesh calls it; it returns when every
+    process has written (a barrier over the mesh).  Restore with
+    `load_model_sharded(dirpath, mesh)` on a mesh of the same layout."""
+    import os
+
+    import torch.distributed as dist
+    if model._post_dist is None:
+        raise ValueError(
+            "save_model_sharded needs a live distributed posterior "
+            "(train_distributed or load_model_sharded); use save_model for "
+            "single-device models")
+    if type(model).__name__ != "GP":
+        raise ValueError(
+            "sharded checkpoints cover the exact GP's distributed "
+            "posterior (the only N^2-scale factor); use save_model")
+    mesh, block, L, invKys = model._post_dist
+    rank, shape, start, stop = _block_bounds(mesh, tuple(L.shape))
+    data = _np(L)[None, None] if len(shape) == 6 else _np(L)[:, None]
+    os.makedirs(dirpath, exist_ok=True)
+    np.savez_compressed(os.path.join(dirpath, f"shards_p{rank}.npz"),
+                        data_0=data, start_0=np.asarray(start, np.int64),
+                        stop_0=np.asarray(stop, np.int64))
+    if rank == 0:
+        meta = {"format": _SHARDED, "model": type(model).__name__,
+                "kernel": model.kernel.name, "solver": model.solver.name,
+                "dtype": str(model._dtype).rsplit(".", 1)[-1],
+                "noise_lb": model._noise_lb,
+                "noise_free": model._noise_free,
+                "fixhyps": model._fixhyps, "block": int(block),
+                "L_shape": [int(v) for v in shape], **_layout(mesh)}
+        arrays = {"x": _np(model._x), "y": _np(model._y),
+                  "hyps": _np(model._hyps), "invKys": _np(invKys),
+                  "key": _key(model._seed)}
+        if isinstance(model.draws, GeneratorDraws):
+            arrays["draws_state"] = model.draws.gen.get_state().numpy()
+        np.savez_compressed(os.path.join(dirpath, "meta.npz"),
+                            meta=json.dumps(meta), **arrays)
+    ax = mesh.whole if len(shape) == 6 else mesh.axis("rows")
+    dist.barrier(group=ax.group)
 
 
-def load_model_sharded(dirpath: str, mesh=None):
-    """See save_model_sharded."""
-    raise NotImplementedError(
-        "load_model_sharded is ROADMAP module 14, part 2, not ported yet")
+def _find_block(dirpath: str, start: list, stop: list):
+    """The block with these index bounds, from whichever shards_p*.npz
+    holds it; only its data_i is decompressed."""
+    import glob
+    import os
+    for path in sorted(glob.glob(os.path.join(dirpath, "shards_p*.npz"))):
+        with np.load(path, allow_pickle=False) as z:
+            for k in z.files:
+                if not k.startswith("start_"):
+                    continue
+                i = k[len("start_"):]
+                if (z[k].tolist() == start
+                        and z[f"stop_{i}"].tolist() == stop):
+                    return z[f"data_{i}"]
+    raise ValueError(f"no shard {start}:{stop} in {dirpath}")
+
+
+def load_model_sharded(dirpath: str, mesh, device=None):
+    """The GP and its distributed posterior from a sharded checkpoint of
+    either package, each process reading only its own block.  `mesh`
+    must have the checkpoint's layout (a "rows" axis of its process
+    count, or a ("rowg", "colg") grid of its shape), else ValueError; on
+    CUDA unless `device` says otherwise."""
+    import os
+    with np.load(os.path.join(dirpath, "meta.npz"),
+                 allow_pickle=False) as z:
+        meta = json.loads(str(z["meta"]))
+        if meta.get("format") != _SHARDED:
+            raise ValueError(f"not a sharded checkpoint: "
+                             f"{meta.get('format')}")
+        arrays = {k: z[k] for k in z.files if k != "meta"}
+    grid = "grid" in meta
+    got = _layout(mesh) if ({"rowg", "colg"} <= set(mesh.axis_names)
+                            or "rows" in mesh.axis_names) else {}
+    if got != {k: meta[k] for k in ("grid", "n_dev") if k in meta}:
+        what = (f"a {tuple(meta['grid'])} ('rowg', 'colg') grid" if grid
+                else f"{meta['n_dev']} devices on axis 'rows'")
+        raise ValueError(f"checkpoint is blocked for {what}; mesh has axes "
+                         f"{mesh.axis_names} shape {dict(mesh.shape)}")
+    shape = tuple(meta["L_shape"])
+    _, _, start, stop = _block_bounds(
+        mesh, shape[2:] if grid else (shape[0], *shape[2:]))
+    data = _find_block(dirpath, start, stop)
+    if grid:
+        from ..parallel.pchol2d import local_tiles
+        L = local_tiles(data, 0, 0)
+    else:
+        L = torch.from_numpy(np.ascontiguousarray(data[:, 0]))
+    model = _model(meta, arrays, device)
+    model._post_dist = (mesh, meta["block"], model._tensor(L),
+                        model._tensor(arrays["invKys"]))
+    model._trained = True
+    return model

@@ -620,3 +620,16 @@ def test_distributed_objective_nccl_p1_matches_single(cuda):
     assert abs(f - f1) <= 1e-9 * abs(f1)
     assert np.max(np.abs(g - g1)) <= 1e-7 * np.max(np.abs(g1))
     assert launches == 1 + 3           # N_pad = 768: 3 blocks of 256
+
+
+def test_pchol2d_nccl_1x1_matches_library(cuda):
+    """pchol2d_local on a (1, 1) NCCL grid (N = 1024, block 128) against
+    the library Cholesky: within 1e-5 (float32) and 1e-12 (float64) of
+    max |L|; a grid NLL+gradient launches K2 twice (the tile build and its
+    rebuild under autograd)."""
+    from gp_tpu_torch.parallel.mesh import spawn
+    import torch_grid_programs as grid_programs
+    err, launches = spawn(grid_programs.nccl_pchol2d, 1, "cuda", 300,
+                          (1024, 128))[0]
+    assert err["torch.float32"] <= 1e-5 and err["torch.float64"] <= 1e-12
+    assert launches == 2

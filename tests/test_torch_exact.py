@@ -287,9 +287,10 @@ def test_unported_paths_raise_not_implemented():
     from gp_tpu_torch import BucketedGP
     with pytest.raises(NotImplementedError, match="not carried"):
         BucketedGP(np.zeros((32768, 1)), np.zeros(32768), device="cpu")
-    # the QR strategies (module 12) and the 1-D distributed layer (module
-    # 14, part 1) are ported (tests/test_torch_{qr,parallel}.py); a 2-D
-    # grid mesh (part 2) is not
+    # the QR strategies (module 12) and the distributed layer (module 14:
+    # the 1-D mesh and the 2-D grid) are ported (tests/test_torch_{qr,
+    # parallel,pchol2d}.py); the sparse models' distributed fit takes a
+    # 1-D mesh only, as gp_tpu's
     assert TGP(np.zeros((4, 1)), np.zeros(4), solver="qr",
                device="cpu").solver.name == "qr"
 
@@ -297,9 +298,8 @@ def test_unported_paths_raise_not_implemented():
         axis_names = ("rowg", "colg")
         shape = {"rowg": 1, "colg": 1}
 
-    with pytest.raises(NotImplementedError, match="module 14, part 2"):
-        TGP(*_problem(n=20, d=3), device="cpu").train_distributed(Grid())
+    assert TGP._is_grid_mesh(Grid())
     from gp_tpu_torch import FITC
     ft = FITC(*_problem(n=20, d=3), device="cpu")
-    with pytest.raises(NotImplementedError, match="module 14, part 2"):
+    with pytest.raises(ValueError, match="1-D 'rows' mesh"):
         ft.train_distributed(Grid())

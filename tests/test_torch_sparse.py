@@ -228,12 +228,12 @@ def test_defaults_and_device(problem):
     b.set_inducing(torch.tensor(U, dtype=torch.float32))
     assert b.inducing.dtype == torch.float64 and b.num_inducing == len(U)
     # the distributed fit takes a 1-D "rows" mesh (tests/test_torch_
-    # parallel.py); a grid mesh is module 14, part 2
+    # parallel.py); gp_tpu's sparse models have no grid route
 
     class Grid:
         axis_names = ("rowg", "colg")
 
-    with pytest.raises(NotImplementedError, match="module 14, part 2"):
+    with pytest.raises(ValueError, match="1-D 'rows' mesh"):
         b.train_distributed(Grid())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
