@@ -125,6 +125,16 @@ line:
              beside it: an NLL beyond 1e-4 of it must come with
              set_k_streamed's first-order warning), predictions of 2000
              held-out rows, s2 with its gradient
+  bucketed_stream  BucketedGP(X, y, bucket=128) in f32 on the first
+             32832 rows of the same data (capacity 32896), where gp_tpu
+             runs its dense masked programs: train() from the golden
+             record's hyps (the masked NLL), the objective against GP's
+             dense form within 1e-6, _update_posterior's time
+             and rescue steps, 64 absorbs in O(N^2) against their bound and
+             against a fresh refactorization (bucketed_bo's f32 bound),
+             one absorb past capacity, the predictions of the 2000 held-out
+             rows (RMSE below 0.6 of the constant predictor's); K3 exactly
+             one leaf per 128 padded rows of each blocked factorization
   qr_solvers the QR strategies: at N = 8000 f64 the NLL and its gradient
              with chol, qr and qr_pivot (QR against chol), seconds each
              and qr_pivot's factorization alone; the qr_pivot kernel
@@ -2418,6 +2428,274 @@ def phase_stream_fit(torch) -> dict:
     return {"launches": launches}
 
 
+# BucketedGP at the stream configuration: the first multiple of 64 from
+# _STREAM_MIN_N whose capacity (bucket 128: 32896) leaves ABSORBS rows of
+# room
+BS_N = 32832
+LOG_SQRT10 = 0.5 * math.log(10.0)
+
+
+def phase_bucketed_stream(torch) -> dict:
+    """BucketedGP(X, y, bucket=128) in float32 on the first BS_N = 32832
+    rows of the stream configuration's data (capacity 32896), where gp_tpu
+    runs its dense masked programs: train() from the golden record's hyps
+    (GOLDEN_STREAM), as a BO loop refits from its last hyperparameters
+    (from the defaults the fit took 101 evaluations, 131 s on an H100,
+    and the script's time limit has no room for them; the subset-MLE
+    warm start that a default start probes is held against gp_tpu's on
+    the CPU, tests/test_torch_bucketed_stream.py): evaluations, seconds per
+    evaluation, the masked NLL, no refined NLL, peak memory; the
+    objective at the fitted hyps against GP's dense form on the same rows
+    (exact.objective_vg, both alpha by the factor on the blocked route:
+    value within 1e-6); _update_posterior's time and the rescue steps of
+    train()'s posterior (set_k_masked's sqrt(10) ladder); 64 absorbs of the
+    rows after BS_N, each on the O(N^2) branch (the factor written in
+    place, one K2 launch each; median ms against the bound of three reads
+    of the factor's lower triangle), their posterior against a fresh
+    refactorization at the same hyps within twice the f32
+    refactorization's own gap to an f64 refactorization (bucketed_bo's
+    bound), the f64 twin also absorbed, and each f32 mean's gap to f64's
+    (absorb's chol_solve, gp_tpu's two triangular solves on the same
+    factor, the refactorization's); one absorb past capacity (the
+    fallback: capacity 33024, the standardization refreshed); then
+    batch_predict, batch_predict_y and both *_with_grad of the 2000
+    held-out rows (RMSE below 0.6 of the constant predictor's).  The
+    counts are set to 0 just before the model is built; the path's
+    launches (train, the absorbs, the fallback, the predictions) must show
+    K1 a build per evaluation, K3 exactly one register leaf per 128 padded
+    rows of each blocked factorization (_leaves), no K4 or K5; the checks'
+    launches are counted apart."""
+    import numpy as np
+    from gp_tpu_torch import BucketedGP
+    from gp_tpu_torch.models import exact
+    from gp_tpu_torch.models.base import hyp_mean, to_opt_vec
+    from gp_tpu_torch.ops import chol_block, se_tile
+    from gp_tpu_torch.ops.chol import solve_lower, solve_lower_t
+    from gp_tpu_torch.optim.lbfgsb import explain_result
+    from gp_tpu_torch.utils.synth import make_data
+
+    X, y = make_data(STREAM_N, d=STREAM_D, seed=SEED)
+    Xte, yte = make_data(STREAM_TEST_N, d=STREAM_D, seed=STREAM_TEST_SEED)
+    Xtr, ytr = X[:BS_N], y[:BS_N]
+    with open(os.path.join(ROOT, GOLDEN_STREAM)) as fh:
+        start = np.asarray(json.load(fh)["hyp"], np.float64)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    se_tile.reset_launches()
+    chol_block.reset_launches()
+    phase_t0 = time.perf_counter()
+    bo = BucketedGP(Xtr, ytr, bucket=N_BUCKET)
+    cap = BS_N + ABSORBS
+    check(bo.device.type == "cuda" and bo.dtype == torch.float32
+          and bo.capacity == cap and bo._in_stream_regime()
+          and not bo._factor_free(), f"BucketedGP at N = {BS_N}: capacity "
+          f"{bo.capacity}, CUDA float32, the stream regime's predicate with "
+          f"the masked posterior expected")
+    secs, rescue = {}, {}
+
+    def timed(name):
+        fn = getattr(bo, name)
+
+        def run(*a):
+            ls0 = float(bo._hyps[-2]) if bo._hyps is not None else None
+            t = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t
+            if name == "_update_posterior":
+                rescue["steps"] = round((float(bo._hyps[-2]) - ls0)
+                                        / LOG_SQRT10)
+            return out
+        setattr(bo, name, run)
+    stages = ("_run_local_opt", "_update_posterior")
+    for name in stages:
+        timed(name)
+    with factorizations() as fz:
+        t0 = time.perf_counter()
+        nll = bo.train(start)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    for name in stages:
+        delattr(bo, name)
+    train_counts = _counts(se_tile, chol_block)
+    peak_train = torch.cuda.max_memory_allocated() / 1e9
+    evals = int(bo.last_opt_result.evals)
+    check(math.isfinite(nll) and bo._post_aux is None, f"bucketed_stream: "
+          f"train() returned {nll}, post_aux {bo._post_aux}")
+    check(train_counts["k1"] >= evals and train_counts["k3"] == fz.leaves()
+          and train_counts["other"] == 0, f"bucketed_stream train: "
+          f"{train_counts} for {evals} evaluations and blocked "
+          f"factorizations of sizes {sorted(set(fz.sizes))}")
+    hyp = bo.get_hyp()
+    path = dict(train_counts)
+
+    # the checks: train()'s NLL, the objective against GP's dense form,
+    # _update_posterior's time (their launches apart)
+    before = _counts(se_tile, chol_block)
+    nll_again = bo.nll(hyp)
+    vec = to_opt_vec(bo._tensor(bo._hyp_to_std(hyp)), False)
+    f_b, g_b = bo._objective_closure()(vec)
+    gp_form = "tiled" if exact.use_streamed_vg(bo.kernel, bo._x) else "dense"
+    f_g, g_g = exact.objective_vg(bo.kernel, False, vec, bo._x, bo._ys)
+    obj_rel = abs(float(f_b) - float(f_g)) / abs(float(f_g))
+    obj_grad = float((g_b - g_g).abs().max() / g_g.abs().max())
+    upd_ms = cuda_ms(torch, bo._update_posterior, iters=3, warm=1)
+    check(np.array_equal(bo.get_hyp(), hyp), "_update_posterior at the "
+          "fitted hyps inflated the noise")
+    checks = _since(before, _counts(se_tile, chol_block))
+
+    # 64 absorbs: BS_N -> capacity, each appended in O(N^2)
+    L0 = bo._post[0]
+    before = _counts(se_tile, chol_block)
+    span_ms, wall_ms = [], []
+    for i in range(ABSORBS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        bo.absorb(X[BS_N + i], y[BS_N + i])
+        end.record()
+        end.synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        span_ms.append(start.elapsed_time(end))
+        check(bo._post[0] is L0, f"bucketed_stream absorb {i}: the factor "
+              f"was not appended in place")
+    absorbs = _since(before, _counts(se_tile, chol_block))
+    check(bo.num_train == cap and bo.trained, f"after {ABSORBS} absorbs: "
+          f"{bo.num_train} rows, capacity {bo.capacity}")
+    check(absorbs == {"k1": 0, "k2": ABSORBS, "k3": 0, "other": 0},
+          f"{ABSORBS} absorbs launched {absorbs}: one K2 each expected")
+    absorb_bound = 3 * cap * cap / 2 * 4 / PEAK_BYTES_S * 1e3
+    path = _plus(path, absorbs)
+
+    # the appended posterior against a fresh one at the same hyps, f64 and
+    # f32, on the held-out rows
+    before = _counts(se_tile, chol_block)
+    b64 = BucketedGP(Xtr, ytr, bucket=N_BUCKET, dtype=torch.float64)
+    b64._hyps = b64._tensor(hyp)
+    b64._update_posterior()
+    b64._trained = True
+    for i in range(ABSORBS):
+        b64.absorb(X[BS_N + i], y[BS_N + i])
+    app32, app64 = _bo_pred(bo, Xte), _bo_pred(b64, Xte)
+    # the mean from gp_tpu's two triangular solves on the appended factor,
+    # beside absorb's chol_solve
+    L = bo._post[0]
+    tri = exact.predict_y(bo.kernel, bo._hyps, bo._x, solve_lower_t(
+        L, solve_lower(L, bo._y - hyp_mean(bo._hyps))), bo._tensor(Xte))
+    del L
+    bo._update_posterior()
+    b64._update_posterior()
+    check(np.array_equal(bo.get_hyp(), hyp)
+          and np.array_equal(b64.get_hyp(), hyp),
+          "the refactorization at the fitted hyps inflated the noise")
+    ref32, ref64 = _bo_pred(bo, Xte), _bo_pred(b64, Xte)
+    del b64
+    torch.cuda.empty_cache()
+    checks = _plus(checks, _since(before, _counts(se_tile, chol_block)))
+    gap64 = _rel_gap(app64, ref64, ref64)
+    gap32 = _rel_gap(app32, ref32, ref64)
+    ref_gap32 = _rel_gap(ref32, ref64, ref64)
+    bound32 = [2 * g for g in ref_gap32]
+    mu_to_f64 = {"appended_chol_solve": _rel_gap(app32, ref64, ref64)[0],
+                 "appended_two_triangular_solves": _rel_gap(
+                     (tri.double(),), ref64, ref64)[0],
+                 "refactorized": ref_gap32[0]}
+
+    # one absorb past capacity: the buffers grow, the standardization
+    # refreshes, the factor is refactorized
+    mu0 = bo._y_mu
+    before = _counts(se_tile, chol_block)
+    with factorizations() as fz:
+        t0 = time.perf_counter()
+        bo.absorb(X[cap], y[cap])
+        torch.cuda.synchronize()
+        fallback_s = time.perf_counter() - t0
+    fallback = _since(before, _counts(se_tile, chol_block))
+    path = _plus(path, fallback)
+    check(bo.capacity == cap + N_BUCKET and bo.num_train == cap + 1
+          and bo.trained and bo._y_mu != mu0, f"absorb past capacity: "
+          f"capacity {bo.capacity}, {bo.num_train} rows, y_mu {bo._y_mu}")
+    check(fallback["k3"] == fz.leaves() == _leaves(cap + 1) * len(fz.sizes)
+          and fallback["k1"] == 0 and fallback["other"] == 0,
+          f"absorb past capacity launched {fallback} for factorizations of "
+          f"{fz.sizes}")
+
+    # the predictions on the held-out rows
+    before = _counts(se_tile, chol_block)
+    t0 = time.perf_counter()
+    mu, s2 = bo.batch_predict(Xte)
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    mu_y = bo.batch_predict_y(Xte)
+    yg, gy = bo.batch_predict_y_with_grad(Xte[:N_GRAD])
+    sg, gs = bo.batch_predict_s2_with_grad(Xte[:N_GRAD])
+    torch.cuda.synchronize()
+    path = _plus(path, _since(before, _counts(se_tile, chol_block)))
+    for k, v in {"mu": mu, "s2": s2, "mu_y": mu_y, "y_wg": yg, "gy": gy,
+                 "s2_wg": sg, "gs2": gs}.items():
+        check(bool(torch.isfinite(v).all()), f"bucketed_stream {k} not "
+              f"finite")
+    check(tuple(gs.shape) == (N_GRAD, STREAM_D), "gradient shape")
+    rmse = _rmse(mu.cpu().numpy(), yte)
+    rmse_const = _rmse(np.full_like(yte, ytr.mean()), yte)
+    eps32 = float(torch.finfo(torch.float32).eps)
+    res = {"n": BS_N, "d": STREAM_D, "bucket": N_BUCKET, "capacity": cap,
+           "start": GOLDEN_STREAM, "nll": nll, "nll_again": nll_again, "evals": evals,
+           "status": explain_result(bo.last_opt_result),
+           "entered_search": bo.last_search is not None,
+           "fit_s": secs["_run_local_opt"],
+           "s_per_eval": secs["_run_local_opt"] / evals,
+           "posterior_s": secs["_update_posterior"], "train_s": train_s,
+           "rescue_steps": rescue["steps"], "hyp": hyp.tolist(),
+           "c_floor": float(np.exp(2 * hyp[-2]) / (
+               BS_N * eps32 * np.exp(2 * hyp[STREAM_D]))),
+           "peak_gb_train": peak_train,
+           "objective_vs_gp": {"gp_form": gp_form, "value_rel": obj_rel,
+                               "grad_over_max": obj_grad, "limit": 1e-6},
+           "update_posterior_ms": upd_ms,
+           "absorb_ms_median": float(np.median(span_ms)),
+           "absorb_ms_max": float(np.max(span_ms)),
+           "absorb_host_ms_median": float(np.median(wall_ms)),
+           "absorb_bound_ms": absorb_bound, "absorb_bound_by": "bytes",
+           "appended_vs_refactorized": {
+               "f64_rel_gap_mu_s2": gap64,
+               "f32_rel_gap_mu_s2": gap32, "f32_bound_mu_s2": bound32,
+               "f32_refactorization_gap_to_f64_mu_s2": ref_gap32,
+               "f32_mu_gap_to_f64": mu_to_f64},
+           "fallback_s": fallback_s, "fallback_launches": fallback,
+           "capacity_after_fallback": bo.capacity,
+           "predict_2000_s": predict_s, "rmse": rmse,
+           "rmse_const": rmse_const,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "train_launches": train_counts, "absorb_launches": absorbs,
+           "launches": path, "check_launches": checks,
+           "seconds": time.perf_counter() - phase_t0}
+    emit("bucketed_stream", **res)
+    check(gp_form == "dense" and obj_rel <= 1e-6, f"bucketed_stream: the "
+          f"masked objective {float(f_b)} against GP's {gp_form} form "
+          f"{float(f_g)}: {obj_rel} beyond 1e-6")
+    check(abs(nll - nll_again) <= 1e-6 * abs(nll), f"train() returned "
+          f"{nll}, the masked NLL at its hyps is {nll_again}")
+    check(gap32[0] <= bound32[0] and gap32[1] <= bound32[1],
+          f"f32: absorbed posterior {gap32} from the refactorization's, "
+          f"beyond {bound32}")
+    check(rmse < 0.6 * rmse_const, f"bucketed_stream: held-out RMSE {rmse} "
+          f"not below 0.6 of the constant predictor's {rmse_const}")
+    check(path["k1"] > 0 and path["k2"] > 0 and path["other"] == 0,
+          f"bucketed_stream: the path's launches {path}")
+    x, h = bo._x, bo._hyps
+    inv_l = torch.exp(-h[:STREAM_D])
+    sf2 = torch.exp(2.0 * h[STREAM_D])
+    k1 = _k1_record(torch, se_tile, x[:BS_N], inv_l, sf2, torch.full(
+        (BS_N,), float(sf2 + torch.exp(2.0 * h[-2])), dtype=x.dtype,
+        device=x.device))
+    k2 = _k2_record(torch, se_tile, x[:1], x[:BS_N], inv_l, sf2)
+    del bo
+    torch.cuda.empty_cache()
+    return {"launches": path, "k1": k1, "k2": k2}
+
+
 # ---------------------------------------------------------------------------
 # The QR solver strategies (module 12)
 # ---------------------------------------------------------------------------
@@ -3090,6 +3368,7 @@ def main() -> int:
         grid = phase_grid(torch, distributed)
         stream = {"stream_at_golden": phase_stream_at_golden(torch),
                   "stream_fit": phase_stream_fit(torch)}
+        bucketed_stream = phase_bucketed_stream(torch)
         src = "gp_tpu_torch/csrc/se_tile.cu"
         kernels = []
         for kernel, path in paths.items():
@@ -3255,6 +3534,22 @@ def main() -> int:
                     "chol_inv", chol_src, "gp_tpu/ops/pallas_chol.py:180",
                     rec3, n["k3"], label, design="chol_inv_reg",
                     shape=[LEAF, LEAF], dtype=dt, library=rec3["library"]))
+        # BucketedGP at the stream configuration: K1 at its build
+        # (32832, 32832) x 10, K2 at absorb's (1, 32832), K3 at b = 128
+        bs = bucketed_stream
+        rec3 = chol_timed[("chol_inv", "float32", LEAF, None)]
+        check(bs["launches"]["k3"] > 0, "K3 not launched on bucketed_stream")
+        for name, line, rec, n in (
+                ("se_tile_diag", 89, bs["k1"], bs["launches"]["k1"]),
+                ("se_tile", 71, bs["k2"], bs["launches"]["k2"])):
+            kernels.append(row(
+                name, src, f"gp_tpu/ops/pallas_kernels.py:{line}", rec, n,
+                "bucketed_stream", device_ms=rec["device_ms"], form="se",
+                shape=[rec["m"], rec["n"], rec["d"]], dtype="float32"))
+        kernels.append(row(
+            "chol_inv", chol_src, "gp_tpu/ops/pallas_chol.py:180", rec3,
+            bs["launches"]["k3"], "bucketed_stream", design="chol_inv_reg",
+            shape=[LEAF, LEAF], dtype="float32", library=rec3["library"]))
         # the QR fits (K1's time at each fit's N and dtype, K2's at the
         # main shape) and the distributed paths (K2 in float32 at the
         # gradient's row blocks (B, N_pad) x 10, the build's one launch of

@@ -7,13 +7,12 @@ gp_tpu keeps the data in a buffer of fixed capacity (a multiple of
 scalar, so that add_data and train re-run the same compiled program until
 the buffer grows.  The port has no trace to keep, so the padding of the
 objective, set_k and the predictions went: _x, _y and _ys are views of
-the buffers' first num_train rows, and GP's objective, fit and
-predictions run on them unchanged (the predictions through _factors()
-and _inv_kys(), here views of the factor buffer's live block).  On real
-rows gp_tpu's identity-masked pad gives the same NLL, gradient and
-posterior, up to rounding.  The objective prints no NLL breakdown, as
-gp_tpu's masked family does not.  What stays are the rules that decide
-the values:
+the buffers' first num_train rows.  The NLL, the objective and the fit
+are the masked family's (models/exact.py), which compute on those rows;
+GP's predictions run on them unchanged (through _factors() and
+_inv_kys(), here views of the factor buffer's live block).  On real rows
+gp_tpu's identity-masked pad gives the same NLL, gradient and posterior,
+up to rounding.  What stays are the rules that decide the values:
 
   * capacity = ceil(n / bucket) * bucket; add_data within capacity keeps
     the y-standardization (_y_mu, _y_sigma) frozen and standardizes the
@@ -21,17 +20,26 @@ the values:
     grows to the next bucket multiple;
   * absorb appends one point to the Cholesky factor in O(capacity^2) with
     the hyperparameters kept, and refactorizes when it cannot
-    (exact.append_posterior_masked).
+    (exact.append_posterior_masked);
+  * the objective takes alpha by the factor, and every stage runs the
+    dense masked programs at any N (gp_tpu overrides each of GP's stages,
+    bucketed.py:130-233).  From _STREAM_MIN_N rows only the subset-MLE
+    warm start of GP's stream regime applies (gp_tpu's _in_stream_regime
+    keys it, and is true for a Cholesky BucketedGP); the fit, the
+    posterior (set_k_masked's sqrt(10) rescue), absorb, the predictions
+    and train()'s returned NLL (the masked NLL) stay the masked family's.
 
 The posterior factor keeps gp_tpu's layout: a (capacity x capacity)
 buffer blockdiag(L, I), so that absorb writes one row in place instead
 of reallocating the factor (256 MB per observation at N = 8000 in f32),
 and so that a checkpoint's factor is gp_tpu's.
 
-Not carried: BucketedGP in the stream regime (N >= 32768).  Its absorb
-appends to the N^2 factor that the stream regime never keeps, and
-gp_tpu's masked family has no stream form (it runs its dense programs
-at any N), so a BucketedGP of that size raises; GP serves that N.
+One difference from gp_tpu, from N >= _STREAM_MIN_N rows: gp_tpu's
+batch_predict, batch_predict_s2 and both *_with_grad raise there
+(GP._factors asserts that a stream-regime posterior caches no factor,
+and BucketedGP inherits the assertion although its posterior does cache
+one); the port returns the values of gp_tpu's predict_masked and
+_predict_single_masked on the cached factor.
 """
 
 from __future__ import annotations
@@ -40,16 +48,9 @@ import numpy as np
 import torch
 
 from .base import _np
-from . import exact
-from .exact import GP, append_posterior_masked, set_k_masked
-
-
-def _check_n(n: int) -> None:
-    if n >= exact._STREAM_MIN_N:
-        raise NotImplementedError(
-            f"BucketedGP at N={n} >= {exact._STREAM_MIN_N} rows is not "
-            f"carried (its absorb needs the N^2 factor that the stream "
-            f"regime does not keep); use GP")
+from .exact import (GP, _inf_where_nonfinite, append_posterior_masked,
+                    fit_masked, multistart_objective_masked, nll_raw_masked,
+                    objective_vg_masked, set_k_masked)
 
 
 def _pad_rows(a, cap: int):
@@ -62,11 +63,8 @@ class BucketedGP(GP):
     """Exact GP over buffers of a fixed capacity; `bucket` is the growth
     granule.  Runs on CUDA unless given device="cpu", as GP."""
 
-    _DECOMP = False
-
     def __init__(self, train_x, train_y, bucket: int = 64, **kw):
         super().__init__(train_x, train_y, **kw)
-        _check_n(self.num_train)
         self._bucket = int(bucket)
         self._refresh_buffers()
 
@@ -98,7 +96,6 @@ class BucketedGP(GP):
         if x.ndim != 2 or x.shape[1] != self._dim:
             raise ValueError("added x must be (num_added, dim)")
         n0, n1 = self.num_train, self.num_train + x.shape[0]
-        _check_n(n1)
         self._trained = False
         if n1 > self.capacity:
             self._x = torch.cat([self._x, x])
@@ -142,6 +139,34 @@ class BucketedGP(GP):
             self._post = (L, invKys)
         else:   # non-positive pivot: the full rescue path
             self._update_posterior()
+
+    # -- the masked family's stages (gp_tpu bucketed.py:130-198) -----------
+    def _factor_free(self) -> bool:
+        return False
+
+    def _nll_value(self, hyp):
+        return _inf_where_nonfinite(nll_raw_masked(
+            self.kernel, hyp, self._xp, self._yp, self.num_train,
+            self.solver))
+
+    def _objective_closure(self):
+        kernel, noise_free, solver = self.kernel, self._noise_free, \
+            self.solver
+        xp, ysp, n = self._xp, self._ysp, self.num_train
+        return lambda v: objective_vg_masked(kernel, noise_free, v, xp, ysp,
+                                             n, solver)
+
+    def _multistart_objective(self):
+        kernel, noise_free, solver = self.kernel, self._noise_free, \
+            self.solver
+        xp, ysp, n = self._xp, self._ysp, self.num_train
+        return lambda vecs: torch.stack([multistart_objective_masked(
+            kernel, noise_free, v, xp, ysp, n, solver) for v in vecs])
+
+    def _run_local_opt(self, vec0, lb_v, ub_v):
+        return fit_masked(self.kernel, self._noise_free, self._xp,
+                          self._ysp, self.num_train, vec0, lb_v, ub_v,
+                          max_evals=self._MAX_EVAL, solver=self.solver)
 
     def _update_posterior(self):
         hyp, f, invKys, ok = set_k_masked(self.kernel, self._hyps, self._xp,

@@ -26,7 +26,9 @@ every point's gradient, because row i depends on X*[i] alone.
 Under GP_TPU_DEBUG=1 and GP_TPU_VERBOSE_OPT=1 (base.debug_decomp_enabled)
 nll_raw and nll_vg_raw print gp_tpu's per-evaluation NLL breakdown; off,
 they add no host sync.  The masked family at the end of the module
-(BucketedGP's) computes on the live rows of a capacity buffer.
+(BucketedGP's) computes on the live rows of a capacity buffer with
+gp_tpu's dense programs at every N: of the stream regime below only the
+warm start applies to it (GP._factor_free).
 
 The stream regime (N >= _STREAM_MIN_N = 32768 rows, gp_tpu's
 exact.py:363-1139) decides gp_tpu's values at that size, and the port
@@ -123,7 +125,6 @@ def _check_dense_solver(solver: SolverSpec, x) -> None:
 
 def _nll_terms(kernel: KernelSpec, hyp, x, y, solver: SolverSpec):
     """(data_fit, half_logdet, norm_const) of the NLL at hyp."""
-    _check_dense_solver(solver, x)
     n = x.shape[0]
     nc = kernel.num_hyp(x.shape[1])
     r = y - hyp_mean(hyp)
@@ -140,27 +141,28 @@ def _print_decomp(tag: str, data_fit, half_logdet, norm_const) -> None:
                            norm_const=norm_const)
 
 
-def nll_raw(kernel: KernelSpec, hyp, x, y, solver: SolverSpec = CHOL,
-            decomp: bool = True):
+def nll_raw(kernel: KernelSpec, hyp, x, y, solver: SolverSpec = CHOL):
     """Negative log marginal likelihood; NaN/inf propagate.
     GP::_calcNegLogProb (GP.cpp:120-148).  Under debug_decomp_enabled()
-    prints gp_tpu's "nll" breakdown (exact.py:113-118), unless decomp is
-    False (the masked family's callers: gp_tpu's prints nothing)."""
+    prints gp_tpu's "nll" breakdown (exact.py:113-118)."""
+    _check_dense_solver(solver, x)
     data_fit, half_logdet, norm_const = _nll_terms(kernel, hyp, x, y,
                                                    solver)
-    if decomp and debug_decomp_enabled():
+    if debug_decomp_enabled():
         _print_decomp("nll", data_fit, half_logdet, norm_const)
     return data_fit + half_logdet + norm_const
 
 
-def nll(kernel: KernelSpec, hyp, x, y, solver: SolverSpec = CHOL,
-        decomp: bool = True):
-    v = nll_raw(kernel, hyp, x, y, solver, decomp)
+def _inf_where_nonfinite(v):
     return torch.where(torch.isfinite(v), v, torch.full_like(v, INF))
 
 
+def nll(kernel: KernelSpec, hyp, x, y, solver: SolverSpec = CHOL):
+    return _inf_where_nonfinite(nll_raw(kernel, hyp, x, y, solver))
+
+
 def nll_vg_raw(kernel: KernelSpec, hyp, x, y, blocked=None,
-               decomp: bool = True, solver: SolverSpec = CHOL):
+               solver: SolverSpec = CHOL):
     """NLL + analytic hyperparameter gradient via the explicit inverse
     (GP.cpp:120-176):
 
@@ -177,7 +179,7 @@ def nll_vg_raw(kernel: KernelSpec, hyp, x, y, blocked=None,
     (None: by size and device).  NaN/inf propagate (the caller
     sanitizes).  No host sync: every scalar stays on the device, unless
     debug_decomp_enabled(), which prints gp_tpu's "nll_vg" breakdown
-    (exact.py:198-202); decomp=False keeps it silent, as nll_raw's.
+    (exact.py:198-202).
 
     solver: a non-Cholesky strategy (QR, QR_PIVOT) factors K with it, and
     K^-1 = solver.solve(f, I), symmetrized.  gp_tpu takes that gradient by
@@ -196,16 +198,18 @@ def nll_vg_raw(kernel: KernelSpec, hyp, x, y, blocked=None,
     stream = x.shape[0] >= _STREAM_MIN_N
     value, grad, terms = _nll_vg_terms(kernel, hyp, x, y, blocked, stream,
                                        solver)
-    if decomp and debug_decomp_enabled():
+    if debug_decomp_enabled():
         tag = ("nll" if solver.name != "chol" else
                "nll_vg_streamed" if stream else "nll_vg")
         _print_decomp(tag, *terms)
     return value, grad
 
 
-def _nll_vg_terms(kernel: KernelSpec, hyp, x, y, blocked, stream: bool,
-                  solver: SolverSpec = CHOL):
-    """(value, grad, (data_fit, half_logdet, norm_const)) of nll_vg_raw."""
+def _nll_vg_terms(kernel: KernelSpec, hyp, x, y, blocked,
+                  alpha_by_factor: bool, solver: SolverSpec = CHOL):
+    """(value, grad, (data_fit, half_logdet, norm_const)) of nll_vg_raw.
+    alpha_by_factor: the Cholesky solver's alpha by chol_solve(L, r), else
+    by the explicit inverse's matvec K^-1 r."""
     n = x.shape[0]
     nc = kernel.num_hyp(x.shape[1])
     chyp = hyp[:nc]
@@ -221,9 +225,9 @@ def _nll_vg_terms(kernel: KernelSpec, hyp, x, y, blocked, stream: bool,
     if solver.name == "chol":
         L, Kinv = factor_and_inverse(K, blocked)
         # gp_tpu's dense form takes alpha from the (already needed)
-        # explicit inverse, one matvec; its stream regime solves with the
-        # factor
-        alpha = chol_solve(L, r) if stream else Kinv @ r
+        # explicit inverse, one matvec; its stream regime and its masked
+        # family solve with the factor
+        alpha = chol_solve(L, r) if alpha_by_factor else Kinv @ r
         half_logdet = 0.5 * chol_logdet(L)
         del L
     else:
@@ -379,8 +383,7 @@ def nll_refined(kernel: KernelSpec, hyp, x, y, tile: int = 2048,
                           _snap_tile(x.shape[0], tile), probes, seed, z)[2]
 
 
-def nll_vg_streamed(kernel: KernelSpec, hyp, x, y, tile: int = 4096,
-                    decomp: bool = True):
+def nll_vg_streamed(kernel: KernelSpec, hyp, x, y, tile: int = 4096):
     """NLL and hyperparameter gradient with two N^2 buffers, L and
     T = L^-1, plus (N, tile) panels (gp_tpu exact.py:464-587).
 
@@ -392,7 +395,7 @@ def nll_vg_streamed(kernel: KernelSpec, hyp, x, y, tile: int = 4096,
     snapping is kept; where no tile divides n (or n <= tile) the K^-1
     columns come from solves of identity columns instead.  Under
     debug_decomp_enabled() prints gp_tpu's "nll_vg_streamed" breakdown
-    (exact.py:507-511), unless decomp is False.  NaN/inf propagate."""
+    (exact.py:507-511).  NaN/inf propagate."""
     n = x.shape[0]
     if n > tile:
         tile = _snap_tile(n, tile)
@@ -405,7 +408,7 @@ def nll_vg_streamed(kernel: KernelSpec, hyp, x, y, tile: int = 4096,
     terms = (0.5 * torch.dot(r, alpha), 0.5 * chol_logdet(L),
              _half_n_log_2pi(n))
     value = terms[0] + terms[1] + terms[2]
-    if decomp and debug_decomp_enabled():
+    if debug_decomp_enabled():
         _print_decomp("nll_vg_streamed", *terms)
 
     def grad_tile(kinv_i, j, b):
@@ -517,48 +520,52 @@ def set_k_streamed(kernel: KernelSpec, hyp, x, y, tile: int = 2048,
 
 
 def objective_vg(kernel: KernelSpec, noise_free: bool, vec, x, y,
-                 solver: SolverSpec = CHOL, blocked=None,
-                 decomp: bool = True):
+                 solver: SolverSpec = CHOL, blocked=None):
     """(value, grad) over the optimization vector, INF-sanitized: from
     nll_vg_streamed where use_streamed_vg says so, else nll_vg_raw (a
-    non-Cholesky solver's analytic gradient included); blocked and decomp
-    as in nll_vg_raw."""
+    non-Cholesky solver's analytic gradient included); blocked as in
+    nll_vg_raw."""
     hyp = from_opt_vec(vec, noise_free)
     if solver.name != "chol":
         _check_dense_solver(solver, x)
-        f, g_hyp = nll_vg_raw(kernel, hyp, x, y, decomp=decomp,
-                              solver=solver)
-        return sanitize_value_and_grad(f, to_opt_vec(g_hyp, noise_free))
-    if use_streamed_vg(kernel, x):
-        f, g_hyp = nll_vg_streamed(kernel, hyp, x, y, decomp=decomp)
+        f, g_hyp = nll_vg_raw(kernel, hyp, x, y, solver=solver)
+    elif use_streamed_vg(kernel, x):
+        f, g_hyp = nll_vg_streamed(kernel, hyp, x, y)
     else:
-        f, g_hyp = nll_vg_raw(kernel, hyp, x, y, blocked, decomp)
+        f, g_hyp = nll_vg_raw(kernel, hyp, x, y, blocked)
     return sanitize_value_and_grad(f, to_opt_vec(g_hyp, noise_free))
 
 
-def multistart_objective(kernel: KernelSpec, noise_free: bool, vec, x, y,
-                         solver: SolverSpec = CHOL, decomp: bool = True):
-    """NLL with the sn2 > mean(sf2) rejection (GP.cpp:470-471)."""
-    hyp = from_opt_vec(vec, noise_free)
+def _reject_loud_noise(kernel: KernelSpec, hyp, x, v):
+    """v, or INF where it is not finite or sn2 > mean(sf2)
+    (GP.cpp:470-471)."""
     nc = kernel.num_hyp(x.shape[1])
     sf2_mean = torch.mean(kernel.diag_k(hyp[:nc], x))
-    v = nll_raw(kernel, hyp, x, y, solver, decomp)
     ok = torch.isfinite(v) & (hyp_sn2(hyp) <= sf2_mean)
     return torch.where(ok, v, torch.full_like(v, INF))
 
 
-def fit(kernel: KernelSpec, noise_free: bool, x, y, vec0, lb, ub,
-        max_evals: int = 160, solver: SolverSpec = CHOL,
-        decomp: bool = True):
-    """The bounded local MLE optimization.
+def multistart_objective(kernel: KernelSpec, noise_free: bool, vec, x, y,
+                         solver: SolverSpec = CHOL):
+    """NLL with the sn2 > mean(sf2) rejection (GP.cpp:470-471)."""
+    hyp = from_opt_vec(vec, noise_free)
+    return _reject_loud_noise(kernel, hyp, x,
+                              nll_raw(kernel, hyp, x, y, solver))
 
-    Dtype contract: optimizer state runs in the DATA dtype; a float64 vec0
-    over float32 data is cast down (gp_tpu exact.py:643-648)."""
-    fun = lambda v: objective_vg(kernel, noise_free, v, x, y, solver,
-                                 decomp=decomp)
+
+def _lbfgsb(fun, x, vec0, lb, ub, max_evals: int):
+    """lbfgsb_impl with the optimizer state in the DATA dtype: a float64
+    vec0 over float32 data is cast down (gp_tpu exact.py:643-648)."""
     vec0, lb, ub = (torch.as_tensor(a).to(device=x.device, dtype=x.dtype)
                     for a in (vec0, lb, ub))
     return lbfgsb_impl(fun, vec0, lb, ub, max_evals=max_evals)
+
+
+def fit(kernel: KernelSpec, noise_free: bool, x, y, vec0, lb, ub,
+        max_evals: int = 160, solver: SolverSpec = CHOL):
+    """The bounded local MLE optimization (_lbfgsb of objective_vg)."""
+    return _lbfgsb(lambda v: objective_vg(kernel, noise_free, v, x, y,
+                                          solver), x, vec0, lb, ub, max_evals)
 
 
 def set_k(kernel: KernelSpec, hyp, x, y, solver: SolverSpec = CHOL,
@@ -691,13 +698,20 @@ class GP(GPBase):
     """
 
     _MAX_EVAL = 160
-    # whether the objective prints the NLL breakdown under
-    # debug_decomp_enabled() (BucketedGP's does not, as gp_tpu's)
-    _DECOMP = True
 
     def _in_stream_regime(self) -> bool:
+        """gp_tpu's predicate (exact.py:1076-1078): the Cholesky solver
+        from _STREAM_MIN_N rows.  It keys the subset-MLE warm start."""
         return (self.solver.name == "chol"
                 and self.num_train >= _STREAM_MIN_N)
+
+    def _factor_free(self) -> bool:
+        """Whether the posterior is the stream regime's, which caches no
+        factor (set_k_streamed): it routes the posterior, the variance
+        predictions and train()'s returned NLL.  GP's in the stream
+        regime; a BucketedGP's never (its capacity factor is absorb's
+        state)."""
+        return self._in_stream_regime()
 
     def subset_init_hyps(self, m: int = 8192, seed: int = 0) -> np.ndarray:
         """MLE hyps of a fit to m random rows, the large-N warm start
@@ -744,31 +758,27 @@ class GP(GPBase):
         return hyp
 
     def _nll_value(self, hyp):
-        return nll(self.kernel, hyp, self._x, self._y, self.solver,
-                   self._DECOMP)
+        return nll(self.kernel, hyp, self._x, self._y, self.solver)
 
     def _objective_closure(self):
-        kernel, noise_free, decomp = self.kernel, self._noise_free, \
-            self._DECOMP
+        kernel, noise_free = self.kernel, self._noise_free
         x, y, solver = self._x, self._ys, self.solver
-        return lambda v: objective_vg(kernel, noise_free, v, x, y, solver,
-                                      decomp=decomp)
+        return lambda v: objective_vg(kernel, noise_free, v, x, y, solver)
 
     def _multistart_objective(self):
-        kernel, noise_free, decomp = self.kernel, self._noise_free, \
-            self._DECOMP
+        kernel, noise_free = self.kernel, self._noise_free
         x, y, solver = self._x, self._ys, self.solver
         return lambda vecs: torch.stack([multistart_objective(
-            kernel, noise_free, v, x, y, solver, decomp) for v in vecs])
+            kernel, noise_free, v, x, y, solver) for v in vecs])
 
     def _run_local_opt(self, vec0, lb_v, ub_v):
         return fit(self.kernel, self._noise_free, self._x, self._ys,
                    vec0, lb_v, ub_v, max_evals=self._MAX_EVAL,
-                   solver=self.solver, decomp=self._DECOMP)
+                   solver=self.solver)
 
     def _update_posterior(self):
         self._post_dist = None      # a single-device posterior supersedes
-        if self._in_stream_regime():
+        if self._factor_free():
             # the cache is invKys and the scalars; no factor
             hyp, self._post_aux, invKys = set_k_streamed(
                 self.kernel, self._hyps, self._x, self._y)
@@ -793,7 +803,7 @@ class GP(GPBase):
         computed beside the posterior (gp_tpu exact.py:1111-1133); the
         raw data fit plus the cached logdet if that is not finite; None
         elsewhere."""
-        if not (self._in_stream_regime() and self._post is not None
+        if not (self._factor_free() and self._post is not None
                 and self._post_aux is not None):
             return None
         v = self._post_aux.get("nll_refined")
@@ -806,7 +816,7 @@ class GP(GPBase):
         return v if np.isfinite(v) else INF
 
     def _factors(self):
-        if self._in_stream_regime():
+        if self._factor_free():
             raise RuntimeError(
                 "stream-regime posteriors cache no factor; the variance "
                 "predictions refactor (predict_streamed)")
@@ -969,7 +979,7 @@ class GP(GPBase):
         self._require_trained()
         if self._post_dist is not None:
             return self._ppredict_dist(xs, False)
-        if self._in_stream_regime():
+        if self._factor_free():
             return predict_streamed(self.kernel, self._hyps, self._x,
                                     self._inv_kys(), self._as_batch(xs))
         return predict(self.kernel, self._hyps, self._x, self._factors(),
@@ -982,7 +992,7 @@ class GP(GPBase):
 
     def batch_predict_s2(self, xs):
         self._require_trained()
-        if self._post_dist is not None or self._in_stream_regime():
+        if self._post_dist is not None or self._factor_free():
             return self.batch_predict(xs)[1]
         return predict_s2(self.kernel, self._hyps, self._x, self._factors(),
                           self._as_batch(xs), self.solver)
@@ -1000,7 +1010,7 @@ class GP(GPBase):
         if self._post_dist is not None:
             _, _, s2, gs2 = self._ppredict_dist(xs, True)
             return s2, gs2
-        if self._in_stream_regime():
+        if self._factor_free():
             return predict_s2_with_grad_streamed(
                 self.kernel, self._hyps, self._x, self._as_batch(xs))
         return predict_s2_with_grad(self.kernel, self._hyps, self._x,
@@ -1016,13 +1026,17 @@ class GP(GPBase):
 # traced scalar, so that adding a point re-runs the same compiled program;
 # the pad rows are identity-masked (K_pad = blockdiag(K, I), r_pad = 0),
 # which gives the live rows' NLL, gradient and posterior exactly.  The
-# port has no trace to keep: BucketedGP's objective, fit and predictions
-# are GP's over views of the live rows, and the functions here take
-# gp_tpu's arguments and compute on x_pad[:n_real] through the functions
-# above (K1, the blocked route with its K3 leaves, K2).  Only the
-# posterior factor keeps gp_tpu's capacity layout, blockdiag(L, I), so
-# that append_posterior_masked writes one row in place.  These print no
-# NLL breakdown, as gp_tpu's do not.
+# port has no trace to keep: the functions here take gp_tpu's arguments
+# and compute on x_pad[:n_real] through the terms above (K1, the blocked
+# route with its K3 leaves, K2), and BucketedGP's predictions are GP's
+# over views of the live rows.  Only the posterior factor keeps gp_tpu's
+# capacity layout, blockdiag(L, I), so that append_posterior_masked
+# writes one row in place.
+#
+# What sets the family apart from GP's own functions is gp_tpu's: at
+# every N it runs the dense programs (no stream form, no refined NLL, no
+# dense-solver budget guard), its objective takes alpha by the factor,
+# chol_solve(L, r) (exact.py:1479), and it prints no NLL breakdown.
 
 def _masked_k(kernel: KernelSpec, chyp, x_pad, n_real: int):
     """K0 over the buffer with identity pad rows and columns,
@@ -1033,16 +1047,49 @@ def _masked_k(kernel: KernelSpec, chyp, x_pad, n_real: int):
 
 def nll_raw_masked(kernel: KernelSpec, hyp, x_pad, y_pad, n_real: int,
                    solver: SolverSpec = CHOL):
-    """NLL over the first n_real rows of a buffer."""
-    return nll_raw(kernel, hyp, x_pad[:n_real], y_pad[:n_real], solver,
-                   decomp=False)
+    """NLL over the first n_real rows of a buffer (gp_tpu
+    exact.py:1442-1456)."""
+    return sum(_nll_terms(kernel, hyp, x_pad[:n_real], y_pad[:n_real],
+                          solver))
 
 
 def nll_vg_raw_masked(kernel: KernelSpec, hyp, x_pad, y_pad, n_real: int,
-                      blocked=None):
-    """nll_vg_raw over the first n_real rows of a buffer."""
-    return nll_vg_raw(kernel, hyp, x_pad[:n_real], y_pad[:n_real], blocked,
-                      decomp=False)
+                      blocked=None, solver: SolverSpec = CHOL):
+    """NLL and analytic gradient over the first n_real rows of a buffer
+    (gp_tpu exact.py:1459-1492): nll_vg_raw's terms with alpha by the
+    factor; a non-Cholesky solver's as in nll_vg_raw."""
+    value, grad, _ = _nll_vg_terms(kernel, hyp, x_pad[:n_real],
+                                   y_pad[:n_real], blocked, True, solver)
+    return value, grad
+
+
+def objective_vg_masked(kernel: KernelSpec, noise_free: bool, vec, x_pad,
+                        y_pad, n_real: int, solver: SolverSpec = CHOL):
+    """(value, grad) of nll_vg_raw_masked over the optimization vector,
+    INF-sanitized (gp_tpu exact.py:1495-1505)."""
+    f, g_hyp = nll_vg_raw_masked(kernel, from_opt_vec(vec, noise_free),
+                                 x_pad, y_pad, n_real, solver=solver)
+    return sanitize_value_and_grad(f, to_opt_vec(g_hyp, noise_free))
+
+
+def multistart_objective_masked(kernel: KernelSpec, noise_free: bool, vec,
+                                x_pad, y_pad, n_real: int,
+                                solver: SolverSpec = CHOL):
+    """nll_raw_masked with the sn2 > mean(sf2) rejection (gp_tpu
+    bucketed.py:136-151)."""
+    hyp = from_opt_vec(vec, noise_free)
+    return _reject_loud_noise(
+        kernel, hyp, x_pad[:n_real],
+        nll_raw_masked(kernel, hyp, x_pad, y_pad, n_real, solver))
+
+
+def fit_masked(kernel: KernelSpec, noise_free: bool, x_pad, y_pad,
+               n_real: int, vec0, lb, ub, max_evals: int = 160,
+               solver: SolverSpec = CHOL):
+    """_lbfgsb of objective_vg_masked (gp_tpu exact.py:1508-1516)."""
+    return _lbfgsb(lambda v: objective_vg_masked(
+        kernel, noise_free, v, x_pad, y_pad, n_real, solver), x_pad, vec0,
+        lb, ub, max_evals)
 
 
 def set_k_masked(kernel: KernelSpec, hyp, x_pad, y_pad, n_real: int,
@@ -1080,10 +1127,16 @@ def append_posterior_masked(kernel: KernelSpec, hyp, x_pad, y_pad,
         l          = L_real^-1 k(X, x_new)
         L[n_old, :] = [l, sqrt(k(x, x) + sn2 - |l|^2)]
 
-    then invKys is solved again over the raw targets (two triangular
-    solves), in place of set_k_masked's O(cap^3) refactorization.  The
-    three solves run over the whole (contiguous) buffer with the vectors
-    zero past the live rows, which leaves them zero there.  x_pad, y_pad
+    then invKys = chol_solve(L, r) over the raw targets, in place of
+    set_k_masked's O(cap^3) refactorization.  gp_tpu solves for invKys
+    with two triangular solves, the same value; chol_solve is set_k's
+    route, and in float32 on the card the more accurate one where the
+    noise sits below the f32 conditioning floor: there the mean from two
+    triangular solves on the appended factor ends further from float64's
+    than a refactorization's (chip_smoke.py's bucketed_stream reports the
+    three gaps), from chol_solve as near.  The solves run over the whole
+    (contiguous) buffer with the vectors zero past the live rows, which
+    leaves them zero there.  x_pad, y_pad
     and L are written in place (gp_tpu returns updated copies).
 
     Returns (x_pad, y_pad, L, invKys, ok); ok (a 0-d bool tensor) is False
@@ -1107,5 +1160,5 @@ def append_posterior_masked(kernel: KernelSpec, hyp, x_pad, y_pad,
                                        L[n_old, :n_old + 1])
     r = L.new_zeros(cap)
     r[:n_old + 1] = y_pad[:n_old + 1] - hyp_mean(hyp)
-    invKys = solve_lower_t(L, solve_lower(L, r))
+    invKys = chol_solve(L, r)
     return x_pad, y_pad, L, invKys, ok

@@ -280,13 +280,14 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 def test_unported_paths_raise_not_implemented():
-    # the stream regime (module 11) is ported (tests/test_torch_stream.py);
-    # BucketedGP is not carried into it
+    # the stream regime (module 11) is ported (tests/test_torch_stream.py),
+    # and BucketedGP runs its masked programs there, as gp_tpu's
+    # (tests/test_torch_bucketed_stream.py)
     assert TGP(np.zeros((32768, 1)), np.zeros(32768),
                device="cpu")._in_stream_regime()
     from gp_tpu_torch import BucketedGP
-    with pytest.raises(NotImplementedError, match="not carried"):
-        BucketedGP(np.zeros((32768, 1)), np.zeros(32768), device="cpu")
+    bo = BucketedGP(np.zeros((32768, 1)), np.zeros(32768), device="cpu")
+    assert bo._in_stream_regime() and not bo._factor_free()
     # the QR strategies (module 12) and the distributed layer (module 14:
     # the 1-D mesh and the 2-D grid) are ported (tests/test_torch_{qr,
     # parallel,pchol2d}.py); the sparse models' distributed fit takes a
