@@ -30,6 +30,7 @@ from ..config import (DBL_EPS, DEFAULT_SEED, INF, as_dtype, default_dtype,
                       resolve_device)
 from ..ops.kernels import KernelSpec, get_kernel
 from ..optim.multistart import GeneratorDraws
+from ..utils.profiling import host_read, span
 
 
 # --------------------------------------------------------------------------
@@ -362,7 +363,8 @@ class GPBase:
         if hyp is None:
             hyp = self._hyps if self._hyps is not None \
                 else self.get_default_hyps()
-        v = float(self._nll_value(self._tensor(hyp)))
+        with span("nll"):
+            v = host_read(self._nll_value(self._tensor(hyp)), "nll")
         return v if np.isfinite(v) else INF
 
     def select_init_hyp(self, max_eval: int, def_hyp) -> np.ndarray:
@@ -433,6 +435,10 @@ class GPBase:
         (_nll_from_posterior), first order in the factor's error: below
         the float32 conditioning floor it is not accurate, and
         set_k_streamed warns (models/exact.py)."""
+        with span("train"):
+            return self._train(init_hyps)
+
+    def _train(self, init_hyps):
         used_defaults = init_hyps is None
         if init_hyps is None:
             init_hyps = self.get_default_hyps()

@@ -47,6 +47,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import count, host_read, span
 from .base import _np
 from .exact import (GP, _inf_where_nonfinite, append_posterior_masked,
                     fit_masked, multistart_objective_masked, nll_raw_masked,
@@ -114,7 +115,11 @@ class BucketedGP(GP):
         trained model with the Cholesky solver and room in the buffer;
         otherwise add_data and _update_posterior (an O(capacity^3)
         refactorization, the same route when the appended pivot is not
-        positive)."""
+        positive; counted as "fallback.absorb_refactor")."""
+        with span("absorb"):
+            self._absorb(x, y)
+
+    def _absorb(self, x, y):
         x = np.asarray(_np(x), np.float64).reshape(-1)
         y = float(np.asarray(_np(y)).reshape(()))
         if x.shape[0] != self._dim:
@@ -125,6 +130,7 @@ class BucketedGP(GP):
         if not cheap:
             self.add_data(x[None, :], [y])
             if self._hyps is not None:
+                count("fallback.absorb_refactor")
                 self._update_posterior()
                 self._trained = True
             return
@@ -135,9 +141,10 @@ class BucketedGP(GP):
             xd, yd)
         self._ysp[n0] = (yd - self._y_mu) / self._y_sigma
         self._live(n0 + 1)
-        if bool(ok):
+        if host_read(ok, "absorb"):
             self._post = (L, invKys)
         else:   # non-positive pivot: the full rescue path
+            count("fallback.absorb_refactor")
             self._update_posterior()
 
     # -- the masked family's stages (gp_tpu bucketed.py:130-198) -----------
@@ -169,9 +176,10 @@ class BucketedGP(GP):
                           max_evals=self._MAX_EVAL, solver=self.solver)
 
     def _update_posterior(self):
-        hyp, f, invKys, ok = set_k_masked(self.kernel, self._hyps, self._xp,
-                                          self._yp, self.num_train,
-                                          self.solver)
+        with span("posterior"):
+            hyp, f, invKys, ok = set_k_masked(self.kernel, self._hyps,
+                                              self._xp, self._yp,
+                                              self.num_train, self.solver)
         if not ok:
             # reference parity (GP.cpp:423-444): never serve a failed factor
             raise RuntimeError(

@@ -79,6 +79,7 @@ from ..ops.chol import (chol_logdet, chol_ok, chol_solve, cholesky,
 from ..ops.kernels import KernelSpec, get_k_noise
 from ..ops.solvers import CHOL, SolverSpec
 from ..optim.lbfgsb import lbfgsb_impl
+from ..utils.profiling import count, host_read, span
 from .base import (GPBase, _np, debug_decomp_enabled, debug_print_nll_decomp,
                    from_opt_vec, hyp_mean, hyp_sn2, sanitize_value_and_grad,
                    to_opt_vec)
@@ -239,14 +240,15 @@ def _nll_vg_terms(kernel: KernelSpec, hyp, x, y, blocked,
         Kinv = 0.5 * (Kinv + Kinv.T)
     terms = (0.5 * torch.dot(r, alpha), half_logdet, _half_n_log_2pi(n))
     value = terms[0] + terms[1] + terms[2]
-    if generic:
-        # Q = Kinv - alpha alpha^T, written over Kinv (dead from here)
-        Q = Kinv.addr_(alpha, alpha, alpha=-1.0)
-        g_cov_t, g_sn2 = torch.autograd.grad(K_build, leaves, Q)
-        del Q, Kinv, K_build
-    else:
-        g_cov_t, g_sn2 = kernel.k_noise_vjp_q(chyp, sn2, x, n, K, Kinv,
-                                              alpha)
+    with span("objective.grad"):
+        if generic:
+            # Q = Kinv - alpha alpha^T, written over Kinv (dead from here)
+            Q = Kinv.addr_(alpha, alpha, alpha=-1.0)
+            g_cov_t, g_sn2 = torch.autograd.grad(K_build, leaves, Q)
+            del Q, Kinv, K_build
+        else:
+            g_cov_t, g_sn2 = kernel.k_noise_vjp_q(chyp, sn2, x, n, K, Kinv,
+                                                  alpha)
     g_sn = sn2 * g_sn2        # = sn2 (tr(Kinv) - a^T a)
     g_mean = -torch.sum(alpha)
     grad = torch.cat([0.5 * g_cov_t,
@@ -490,9 +492,10 @@ def set_k_streamed(kernel: KernelSpec, hyp, x, y, tile: int = 2048,
         h = hyp.clone()
         h[-2] = 0.5 * math.log(sn2) if sn2 > 0 else -INF
         L = _factor_k_noise(kernel, h, x)
-        if bool(chol_ok(L)):
+        if host_read(chol_ok(L), "set_k_streamed"):
             out = (h, *_refined_terms(kernel, h, x, y, L, None, tile, z=z))
             break
+        count("fallback.stream_rescue")
         del L
     if out is None:
         raise RuntimeError(
@@ -525,15 +528,16 @@ def objective_vg(kernel: KernelSpec, noise_free: bool, vec, x, y,
     nll_vg_streamed where use_streamed_vg says so, else nll_vg_raw (a
     non-Cholesky solver's analytic gradient included); blocked as in
     nll_vg_raw."""
-    hyp = from_opt_vec(vec, noise_free)
-    if solver.name != "chol":
-        _check_dense_solver(solver, x)
-        f, g_hyp = nll_vg_raw(kernel, hyp, x, y, solver=solver)
-    elif use_streamed_vg(kernel, x):
-        f, g_hyp = nll_vg_streamed(kernel, hyp, x, y)
-    else:
-        f, g_hyp = nll_vg_raw(kernel, hyp, x, y, blocked)
-    return sanitize_value_and_grad(f, to_opt_vec(g_hyp, noise_free))
+    with span("objective"):
+        hyp = from_opt_vec(vec, noise_free)
+        if solver.name != "chol":
+            _check_dense_solver(solver, x)
+            f, g_hyp = nll_vg_raw(kernel, hyp, x, y, solver=solver)
+        elif use_streamed_vg(kernel, x):
+            f, g_hyp = nll_vg_streamed(kernel, hyp, x, y)
+        else:
+            f, g_hyp = nll_vg_raw(kernel, hyp, x, y, blocked)
+        return sanitize_value_and_grad(f, to_opt_vec(g_hyp, noise_free))
 
 
 def _reject_loud_noise(kernel: KernelSpec, hyp, x, v):
@@ -592,15 +596,16 @@ def set_k(kernel: KernelSpec, hyp, x, y, solver: SolverSpec = CHOL,
 
     f = factor(ls)
     tries = 0
-    while not bool(solver.ok(f)) and tries < max_tries:
-        ls = (torch.full_like(ls, log_eps) if bool(torch.isinf(ls))
-              else ls + half_log10)
+    while not host_read(solver.ok(f), "set_k") and tries < max_tries:
+        count("fallback.set_k_inflation")
+        ls = (torch.full_like(ls, log_eps)
+              if host_read(torch.isinf(ls), "set_k") else ls + half_log10)
         f = factor(ls)
         tries += 1
     hyp = hyp.clone()
     hyp[-2] = ls
     invKys = solver.solve(f, y - hyp_mean(hyp))
-    return hyp, f, invKys, bool(solver.ok(f))
+    return hyp, f, invKys, host_read(solver.ok(f), "set_k")
 
 
 def predict(kernel: KernelSpec, hyp, x, f, invKys, xs,
@@ -613,7 +618,8 @@ def predict(kernel: KernelSpec, hyp, x, f, invKys, xs,
     chyp = hyp[:kernel.num_hyp(x.shape[1])]
     kt = kernel.k(chyp, xs, x)                    # (T, N)
     mu = hyp_mean(hyp) + kt @ invKys
-    kks = solver.solve(f, kt.T)                   # (N, T)
+    with span("predict.solve"):
+        kks = solver.solve(f, kt.T)               # (N, T)
     sf2 = kernel.diag_k(chyp, xs)
     s2 = torch.clamp(sf2 - torch.sum(kt * kks.T, dim=1), min=0.0) \
         + hyp_sn2(hyp)
@@ -630,7 +636,8 @@ def predict_s2(kernel: KernelSpec, hyp, x, f, xs, solver: SolverSpec = CHOL):
     """Variance-only path (GP::_predict_s2, GP.cpp:315-334)."""
     chyp = hyp[:kernel.num_hyp(x.shape[1])]
     kt = kernel.k(chyp, xs, x)
-    kks = solver.solve(f, kt.T)
+    with span("predict.solve"):
+        kks = solver.solve(f, kt.T)
     sf2 = kernel.diag_k(chyp, xs)
     return torch.clamp(sf2 - torch.sum(kt * kks.T, dim=1), min=0.0) \
         + hyp_sn2(hyp)
@@ -642,7 +649,8 @@ def predict_y_with_grad(kernel: KernelSpec, hyp, x, invKys, xs):
     xs = xs.detach().requires_grad_(True)
     with torch.enable_grad():
         mu = predict_y(kernel, hyp, x, invKys, xs)
-        g, = torch.autograd.grad(mu.sum(), xs)
+        with span("predict.backward"):
+            g, = torch.autograd.grad(mu.sum(), xs)
     return mu.detach(), g
 
 
@@ -656,21 +664,24 @@ def predict_s2_with_grad(kernel: KernelSpec, hyp, x, f, xs,
     xs = xs.detach().requires_grad_(True)
     with torch.enable_grad():
         kt = kernel.k(chyp, xs, x)
-        kks = solver.solve(f, kt.T)
+        with span("predict.solve"):
+            kks = solver.solve(f, kt.T)
         quad = torch.sum(kt * kks.T, dim=1)
         sf2 = kernel.diag_k(chyp, xs)
         raw = sf2 - quad + hyp_sn2(hyp)
         clamped = torch.clamp(sf2 - quad, min=0.0) + hyp_sn2(hyp)
         s2 = raw + (clamped - raw).detach()
-        g, = torch.autograd.grad(s2.sum(), xs)
+        with span("predict.backward"):
+            g, = torch.autograd.grad(s2.sum(), xs)
     return s2.detach(), g
 
 
 def predict_streamed(kernel: KernelSpec, hyp, x, invKys, xs):
     """(mu, s2) of a stream-regime posterior, which caches no factor:
     factor K at hyp, then predict's math (gp_tpu exact.py:890-909)."""
-    return predict(kernel, hyp, x, (_factor_k_noise(kernel, hyp, x),),
-                   invKys, xs)
+    with span("predict.factor"):
+        L = _factor_k_noise(kernel, hyp, x)
+    return predict(kernel, hyp, x, (L,), invKys, xs)
 
 
 def predict_s2_with_grad_streamed(kernel: KernelSpec, hyp, x, xs):
@@ -678,8 +689,9 @@ def predict_s2_with_grad_streamed(kernel: KernelSpec, hyp, x, xs):
     predict_s2_with_grad, whose autograd gives gp_tpu's hoisted form
     d(k*^T K^-1 k*)/dx* = 2 (dk*/dx*)^T K^-1 k*, the clamp straight
     through (gp_tpu exact.py:912-946)."""
-    return predict_s2_with_grad(kernel, hyp, x,
-                                (_factor_k_noise(kernel, hyp, x),), xs)
+    with span("predict.factor"):
+        L = _factor_k_noise(kernel, hyp, x)
+    return predict_s2_with_grad(kernel, hyp, x, (L,), xs)
 
 
 # --------------------------------------------------------------------------
@@ -780,13 +792,15 @@ class GP(GPBase):
         self._post_dist = None      # a single-device posterior supersedes
         if self._factor_free():
             # the cache is invKys and the scalars; no factor
-            hyp, self._post_aux, invKys = set_k_streamed(
-                self.kernel, self._hyps, self._x, self._y)
+            with span("posterior"):
+                hyp, self._post_aux, invKys = set_k_streamed(
+                    self.kernel, self._hyps, self._x, self._y)
             self._post = (invKys,)
             self._hyps = hyp
             return
-        hyp, f, invKys, ok = set_k(self.kernel, self._hyps, self._x,
-                                   self._y, self.solver)
+        with span("posterior"):
+            hyp, f, invKys, ok = set_k(self.kernel, self._hyps, self._x,
+                                       self._y, self.solver)
         if not ok:
             # reference parity: _setK loops until the factorization
             # succeeds (GP.cpp:423-444) and never serves a failed factor
@@ -979,11 +993,13 @@ class GP(GPBase):
         self._require_trained()
         if self._post_dist is not None:
             return self._ppredict_dist(xs, False)
-        if self._factor_free():
-            return predict_streamed(self.kernel, self._hyps, self._x,
-                                    self._inv_kys(), self._as_batch(xs))
-        return predict(self.kernel, self._hyps, self._x, self._factors(),
-                       self._inv_kys(), self._as_batch(xs), self.solver)
+        with span("predict"):
+            if self._factor_free():
+                return predict_streamed(self.kernel, self._hyps, self._x,
+                                        self._inv_kys(), self._as_batch(xs))
+            return predict(self.kernel, self._hyps, self._x,
+                           self._factors(), self._inv_kys(),
+                           self._as_batch(xs), self.solver)
 
     def batch_predict_y(self, xs):
         self._require_trained()
@@ -1002,20 +1018,22 @@ class GP(GPBase):
         if self._post_dist is not None:
             y, gy, _, _ = self._ppredict_dist(xs, True)
             return y, gy
-        return predict_y_with_grad(self.kernel, self._hyps, self._x,
-                                   self._inv_kys(), self._as_batch(xs))
+        with span("predict.mean_grad"):
+            return predict_y_with_grad(self.kernel, self._hyps, self._x,
+                                       self._inv_kys(), self._as_batch(xs))
 
     def batch_predict_s2_with_grad(self, xs):
         self._require_trained()
         if self._post_dist is not None:
             _, _, s2, gs2 = self._ppredict_dist(xs, True)
             return s2, gs2
-        if self._factor_free():
-            return predict_s2_with_grad_streamed(
-                self.kernel, self._hyps, self._x, self._as_batch(xs))
-        return predict_s2_with_grad(self.kernel, self._hyps, self._x,
-                                    self._factors(), self._as_batch(xs),
-                                    self.solver)
+        with span("predict.var_grad"):
+            if self._factor_free():
+                return predict_s2_with_grad_streamed(
+                    self.kernel, self._hyps, self._x, self._as_batch(xs))
+            return predict_s2_with_grad(self.kernel, self._hyps, self._x,
+                                        self._factors(), self._as_batch(xs),
+                                        self.solver)
 
 
 # --------------------------------------------------------------------------
@@ -1067,9 +1085,10 @@ def objective_vg_masked(kernel: KernelSpec, noise_free: bool, vec, x_pad,
                         y_pad, n_real: int, solver: SolverSpec = CHOL):
     """(value, grad) of nll_vg_raw_masked over the optimization vector,
     INF-sanitized (gp_tpu exact.py:1495-1505)."""
-    f, g_hyp = nll_vg_raw_masked(kernel, from_opt_vec(vec, noise_free),
-                                 x_pad, y_pad, n_real, solver=solver)
-    return sanitize_value_and_grad(f, to_opt_vec(g_hyp, noise_free))
+    with span("objective"):
+        f, g_hyp = nll_vg_raw_masked(kernel, from_opt_vec(vec, noise_free),
+                                     x_pad, y_pad, n_real, solver=solver)
+        return sanitize_value_and_grad(f, to_opt_vec(g_hyp, noise_free))
 
 
 def multistart_objective_masked(kernel: KernelSpec, noise_free: bool, vec,
@@ -1160,5 +1179,6 @@ def append_posterior_masked(kernel: KernelSpec, hyp, x_pad, y_pad,
                                        L[n_old, :n_old + 1])
     r = L.new_zeros(cap)
     r[:n_old + 1] = y_pad[:n_old + 1] - hyp_mean(hyp)
-    invKys = chol_solve(L, r)
+    with span("absorb.solve"):
+        invKys = chol_solve(L, r)
     return x_pad, y_pad, L, invKys, ok

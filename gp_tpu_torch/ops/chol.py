@@ -24,6 +24,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
+
 # the size from which a CUDA factorization takes the blocked route.  gp_tpu
 # uses 2048 on its TPU; on an H100 the library route's evaluation is the
 # faster one up to 4096 rows (1.2-3.4x), the two tie at 6144 in float32
@@ -96,10 +98,15 @@ def factor_and_inverse(K, blocked=None):
     if blocked is None:
         blocked = _use_blocked(n, K.device)
     if not blocked:
-        L = library_cholesky(K)
-        return L, spd_inv_library(L)
-    Lp, Td, blk = blocked_factor(K)
-    return Lp[:n, :n], spd_inv_from_chol(Lp, block=blk, diag_inv=Td)[:n, :n]
+        with span("objective.factor"):
+            L = library_cholesky(K)
+        with span("objective.inverse"):
+            return L, spd_inv_library(L)
+    with span("objective.factor"):
+        Lp, Td, blk = blocked_factor(K)
+    with span("objective.inverse"):
+        Kinv = spd_inv_from_chol(Lp, block=blk, diag_inv=Td)
+    return Lp[:n, :n], Kinv[:n, :n]
 
 
 def chol_ok(L):

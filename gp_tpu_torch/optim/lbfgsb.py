@@ -7,8 +7,9 @@ Design, as gp_tpu's: limited-memory BFGS two-loop recursion + gradient
 projection onto the box + backtracking Armijo line search along the
 projected path.  gp_tpu's `lax.while_loop`s become Python loops; the
 state stays on the objective's device and in the data dtype, and the
-line search reads its acceptance test on the host: one sync per
-objective evaluation.
+line search reads its acceptance test on the host (one sync per
+objective evaluation), and each accepted step its curvature and stopping
+tests (profiling.host_read counts them under "host_sync.lbfgsb.*").
 
 Objective contract (GP.cpp:147-171): fun(x) returns (f, g); non-finite f
 or g must already be sanitized by the caller to (+inf, anything) — an
@@ -21,6 +22,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+
+from ..utils.profiling import host_read
 
 
 class LBFGSBState(NamedTuple):
@@ -82,7 +85,8 @@ def _lbfgsb_init(fun: Callable, x0, lb, ub, history: int) -> LBFGSBState:
     z = lambda *s: torch.zeros(s, dtype=x0.dtype, device=x0.device)
     return LBFGSBState(x=x0, f=f0, g=g0, S=z(history, n), Y=z(history, n),
                        rho=z(history), head=0, n_hist=0, evals=1,
-                       done=not bool(torch.isfinite(f0)))
+                       done=not host_read(torch.isfinite(f0),
+                                               "lbfgsb.init"))
 
 
 def _lbfgsb_run(fun: Callable, st: LBFGSBState, lb, ub, stop_evals: int,
@@ -108,7 +112,7 @@ def _lbfgsb_run(fun: Callable, st: LBFGSBState, lb, ub, stop_evals: int,
                   & torch.any(dx != 0))
             t = t * 0.5
             n_ls += 1
-            accepted = bool(ok)
+            accepted = host_read(ok, "lbfgsb.armijo")
         evals = st.evals + n_ls
 
         if not accepted:
@@ -118,13 +122,15 @@ def _lbfgsb_run(fun: Callable, st: LBFGSBState, lb, ub, stop_evals: int,
         yv = gt - st.g
         sy = torch.dot(s, yv)
         S, Y, rho, head, n_hist = st.S, st.Y, st.rho, st.head, st.n_hist
-        if bool(sy > 1e-10 * torch.linalg.norm(s) * torch.linalg.norm(yv)):
+        curved = sy > 1e-10 * torch.linalg.norm(s) * torch.linalg.norm(yv)
+        if host_read(curved, "lbfgsb.curvature"):
             S, Y, rho = S.clone(), Y.clone(), rho.clone()
             S[head], Y[head], rho[head] = s, yv, 1.0 / sy
             head = (head + 1) % m
             n_hist = min(n_hist + 1, m)
         st = LBFGSBState(xt, ft, gt, S, Y, rho, head, n_hist, evals,
-                         bool(projected_gradient(xt, gt, lb, ub) < tol))
+                         host_read(projected_gradient(xt, gt, lb, ub) < tol,
+                                   "lbfgsb.pgrad"))
     return st
 
 
@@ -142,7 +148,7 @@ def lbfgsb_impl(fun: Callable, x0, lb, ub, max_evals: int = 160,
     # converged is isfinite(f), as gp_tpu sets it (lbfgsb.py:200): a run
     # that stopped inside the budget with a finite f reports SUCCESS
     return LBFGSBResult(final.x, final.f, final.g, final.evals,
-                        bool(torch.isfinite(final.f)))
+                        host_read(torch.isfinite(final.f), "lbfgsb.result"))
 
 
 def explain_result(res: LBFGSBResult, max_evals: int = 160) -> str:

@@ -140,20 +140,14 @@ def test_native_writer_matches_gp_tpus_bytes(tmp_path):
     assert (tmp_path / "t").read_bytes() == (tmp_path / "j").read_bytes()
 
 
-def test_profiling_helpers(tmp_path, capsys):
-    out = []
-    with profiling.phase("demo", sink=lambda n, dt: out.append((n, dt))):
-        torch.ones(10, 10) @ torch.ones(10, 10)
-    assert out and out[0][0] == "demo" and out[0][1] >= 0
-    with profiling.phase("printed"):
-        pass
-    assert "[gp_tpu_torch] printed:" in capsys.readouterr().out
-    t = profiling.Timer()
-    for _ in range(3):
-        with t("step"):
-            torch.ones(4) + 1
-    assert t.count["step"] == 3 and "step: " in str(t)
-    with profiling.device_trace(str(tmp_path / "trace")) as prof:
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+def test_profiling_helpers(tmp_path):
+    """device_trace writes its Chrome trace; with the tracer on inside it,
+    the program's spans are ranges of that trace."""
+    with profiling.device_trace(str(tmp_path / "trace")) as prof, \
+            profiling.tracing() as t:
+        with profiling.span("demo_span"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+    path = tmp_path / "trace" / "trace.json"
+    assert path.stat().st_size > 0 and "demo_span" in path.read_text()
     assert any("mm" in e.key for e in prof.key_averages())
+    assert [s[0] for s in t.spans] == ["demo_span"]
