@@ -20,8 +20,11 @@ The path, as gp_tpu takes it (exact.py:157-215):
 
 Test-input gradients (GP.cpp:284-296): gp_tpu vmaps value_and_grad of a
 single-point function.  Here the batch is written out: K(X*, X) is built
-once with X* requiring grad, and autograd of mu.sum() (or s2.sum()) gives
-every point's gradient, because row i depends on X*[i] alone.
+once with X* requiring grad, and one vjp of that build gives every point's
+gradient, because row i depends on X*[i] alone: the mean's at cotangent
+invKys (autograd of mu.sum()), the variance's at -2 K^-1 k*, the solve
+that the value needs, hoisted out of autograd as in gp_tpu's
+predict_s2_with_grad_streamed, so that it runs once.
 
 Under GP_TPU_DEBUG=1 and GP_TPU_VERBOSE_OPT=1 (base.debug_decomp_enabled)
 nll_raw and nll_vg_raw print gp_tpu's per-evaluation NLL breakdown; off,
@@ -659,20 +662,26 @@ def predict_s2_with_grad(kernel: KernelSpec, hyp, x, f, xs,
     """(s2, ds2/dx*) batched over test points.  The value is clamped at 0
     (GP.cpp:283); the gradient ignores the clamp, exactly as the
     reference's analytic gs2 does (GP.cpp:294): a straight-through clamp,
-    as gp_tpu's _predict_s2_single."""
+    as gp_tpu's _predict_s2_single.
+
+    gp_tpu's hoisted form (exact.py:912-946): the one solve K^-1 k* runs
+    outside autograd, and the gradient is d sf2/dx* - 2 (dk*/dx*)^T K^-1 k*,
+    the vjp of the K(X*, X) build at cotangent -2 K^-1 k*, taken as the
+    gradient of sf2 - 2 quad with K^-1 k* held constant.  Autograd through
+    the solve would solve the same system again (K is symmetric).  The
+    gradient is of a sum, not a vjp with explicit grad_outputs: those
+    import sympy in torch (seconds, once per process)."""
     chyp = hyp[:kernel.num_hyp(x.shape[1])]
     xs = xs.detach().requires_grad_(True)
     with torch.enable_grad():
         kt = kernel.k(chyp, xs, x)
         with span("predict.solve"):
-            kks = solver.solve(f, kt.T)
+            kks = solver.solve(f, kt.detach().T)  # (N, T), no graph
         quad = torch.sum(kt * kks.T, dim=1)
         sf2 = kernel.diag_k(chyp, xs)
-        raw = sf2 - quad + hyp_sn2(hyp)
-        clamped = torch.clamp(sf2 - quad, min=0.0) + hyp_sn2(hyp)
-        s2 = raw + (clamped - raw).detach()
         with span("predict.backward"):
-            g, = torch.autograd.grad(s2.sum(), xs)
+            g, = torch.autograd.grad(torch.sum(sf2 - 2.0 * quad), xs)
+    s2 = torch.clamp(sf2 - quad, min=0.0) + hyp_sn2(hyp)
     return s2.detach(), g
 
 
@@ -686,9 +695,9 @@ def predict_streamed(kernel: KernelSpec, hyp, x, invKys, xs):
 
 def predict_s2_with_grad_streamed(kernel: KernelSpec, hyp, x, xs):
     """(s2, ds2/dx*) of a stream-regime posterior: factor K at hyp, then
-    predict_s2_with_grad, whose autograd gives gp_tpu's hoisted form
-    d(k*^T K^-1 k*)/dx* = 2 (dk*/dx*)^T K^-1 k*, the clamp straight
-    through (gp_tpu exact.py:912-946)."""
+    predict_s2_with_grad, gp_tpu's hoisted form: one solve K^-1 k*, and
+    d(k*^T K^-1 k*)/dx* = 2 (dk*/dx*)^T K^-1 k* by the vjp of the K2
+    build, the clamp straight through (gp_tpu exact.py:912-946)."""
     with span("predict.factor"):
         L = _factor_k_noise(kernel, hyp, x)
     return predict_s2_with_grad(kernel, hyp, x, (L,), xs)
