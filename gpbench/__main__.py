@@ -3,9 +3,12 @@
 Runs one cell of BENCHMARK.json once on this machine's CUDA device and
 prints the result as the last line of standard output (one JSON object),
 with each number compared beside its limit as the last lines of standard
-error.  Exits 2, with no result, where there is no CUDA device or fewer
-than the cell asks for, where the program cannot be imported, or where
-jax, jaxlib, flax or gp_tpu were loaded.
+error.  Exits 2, with no result: before set-up where the cell cannot be
+run as written (its configuration names no known model family, a kernel
+the family's reference does not compute, or traffic the family does not
+serve), where there is no CUDA device or fewer than the cell asks for,
+where the program cannot be imported, or where jax, jaxlib, flax or
+gp_tpu were loaded.
 """
 
 import time
@@ -37,7 +40,12 @@ def main(argv=None) -> int:
     # cell's p95 by 3x on the card's 8-core host)
     torch.set_num_threads(1)
 
-    _, cell, _, _, _ = harness.resolve(ROOT, a.workload)
+    _, cell, config, traffic, _ = harness.resolve(ROOT, a.workload)
+    try:
+        harness.family(ROOT, cell["config"], config, traffic["kind"])
+    except harness.Refused as exc:
+        print(f"gpbench: {exc}; no result", file=sys.stderr)
+        return 2
     have = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if have < cell["chips"]:
         print(f"gpbench: {a.workload} needs {cell['chips']} CUDA device(s), "

@@ -1,15 +1,16 @@
 """The control and the readings that the limits of cells/<cell>.json are
 set from.
 
-`Control` is the reference put in the program's place, one precision
-below the float32 (TF32 off) that the configurations state: float32
-storage with every matrix product's operands rounded to TF32
-(reference/gp.py, prec="tf32").  It answers the same calls as
-program.Port.  A fit it cannot run (the reference has no optimizer): it
-takes the point at which the program's fit of the same data ended and
-answers there (the NLL, gradient and predictions at that point are what
-the fit cell judges).  Where the control's factor fails it raises the
-noise as the library's posterior does, so that it still gives numbers.
+`Control` is the reference of the configuration's model family
+(families/<family>.py Reference) put in the program's place, one
+precision below the float32 (TF32 off) that the configurations state:
+float32 storage with every matrix product's operands rounded to TF32
+(prec="tf32").  It answers the same calls as program.Port.  A fit it
+cannot run (the reference has no optimizer): it takes the point at which
+the program's fit of the same data ended and answers there (the NLL,
+gradient and predictions at that point are what the fit cell judges).
+Where the control's factor fails it raises the noise as the library's
+posterior does, so that it still gives numbers.
 
 The planted faults that the limits are held against: `Capped`, every
 fit stopped at CAPPED_EVALS evaluations (a quarter of the library's
@@ -43,14 +44,15 @@ import numpy as np
 import torch
 
 from .program import NO_SPANS, Port, _np
-from .reference import gp as ref
 
 TF32 = "tf32"
 
 
 class Control:
-    def __init__(self, device, dtype: str, spans=NO_SPANS):
+    def __init__(self, family, config: dict, device, spans=NO_SPANS):
+        self.family, self.config = family, config
         self.device = torch.device(device)
+        self.ref = family.Reference(config)
         self.port = None
         self.model = None
 
@@ -68,35 +70,36 @@ class Control:
 
     def fit(self, X, y, Xte, max_evals=None, segment=None) -> dict:
         if self.port is None:
-            self.port = Port(self.device, "float32")
+            self.port = Port(self.family, {**self.config, "dtype": "float32"},
+                             self.device)
         ans = self.port.fit(X, y, Xte, max_evals=max_evals)
-        x, yv = self._t(X), self._t(y)
-        h, L, alpha = ref.posterior(x, yv, self._t(ans["hyp"]), TF32)
-        mu, s2 = ref.predict(x, h, L, alpha, self._t(Xte), TF32)
-        del L
+        ref, x, yv = self.ref, self._t(X), self._t(y)
+        post = ref.posterior(x, yv, self._t(ans["hyp"]), TF32)
+        mu, s2 = ref.predict(post, self._t(Xte), TF32)
+        h = post.hyp
+        del post
         ys, _, _ = ref.standardized(yv)
         _, g = ref.nll_grad(x, ys, self._t(ans["x"]), TF32)
         return {**ans, "nll": ref.nll(x, yv, h, TF32), "hyp": _np(h),
                 "g": _np(g), "mu": _np(mu), "s2": _np(s2)}
 
     def serve_setup(self, X, y, hyp) -> None:
-        self.x = self._t(X)
-        self.model = ref.posterior(self.x, self._t(y), self._t(hyp), TF32)
+        self.model = self.ref.posterior(self._t(X), self._t(y),
+                                        self._t(hyp), TF32)
 
     def serve_predict(self, Xq):
-        h, L, alpha = self.model
-        mu, s2 = ref.predict(self.x, h, L, alpha, self._t(Xq), TF32)
+        mu, s2 = self.ref.predict(self.model, self._t(Xq), TF32)
         return _np(mu), _np(s2)
 
-    def bo_build(self, X, y, hyp, bucket: int) -> None:
+    def bo_build(self, X, y, hyp) -> None:
         self.rows, self.ys, self.hyp = [X], [y], self._t(hyp)
 
     def bo_acquire(self, C):
         x = self._t(np.concatenate(self.rows))
         y = self._t(np.concatenate(self.ys))
-        h, L, alpha = ref.posterior(x, y, self.hyp, TF32)
+        post = self.ref.posterior(x, y, self.hyp, TF32)
         return tuple(_np(t) for t in
-                     ref.predict_with_grad(x, h, L, alpha, C, TF32))
+                     self.ref.predict_with_grad(post, C, TF32))
 
     def bo_absorb(self, x, y) -> None:
         self.rows.append(np.asarray(x, np.float64).reshape(1, -1))

@@ -5,7 +5,10 @@ and build the result line.
 Everything a cell needs is found by name under the benchmark's directory
 (`root`/gpbench by default):
 
-  configs/<config>.json   sizes, dtype, fixed hyperparameters, source;
+  configs/<config>.json   sizes, dtype, fixed hyperparameters, source,
+                          the model "family" and its "kernel";
+  families/<family>.py    the family's program side, plain reference and
+                          operation counts (families/exact.py);
   traffic/<traffic>.json  "kind" (a loop of loops.KINDS) and its
                           parameters;
   cells/<workload>.json   the limits of the numbers that decide `correct`;
@@ -37,6 +40,11 @@ PKG = Path(__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "gp_tpu")
 
 
+class Refused(Exception):
+    """A cell that cannot be run as written: the command exits 2, before
+    set-up, with no result."""
+
+
 @dataclass
 class Run:
     """What a run measured: the readers' input."""
@@ -48,6 +56,7 @@ class Run:
     seconds: float
     trace: bool
     device: torch.device
+    family: object = None
     setup_s: float = 0.0
     window_s: float = 0.0
     units: int = 0
@@ -89,6 +98,36 @@ def resolve(root: Path, workload: str, manifest: dict | None = None):
     return manifest, cell, config, traffic, limits
 
 
+def family(root: Path, config_name: str, config: dict, kind=None):
+    """families/<config["family"]>.py, loaded; Refused where the config
+    names no family or one that is not there, or a kernel that the
+    family's reference does not compute, or (`kind` given) where the
+    family does not serve that traffic kind."""
+    name = config.get("family")
+    path = bench_dir(root) / "families" / f"{name}.py"
+    if not (isinstance(name, str) and name.isidentifier() and path.exists()):
+        raise Refused(f"config {config_name}: no model family {name!r} "
+                      f"(families/<family>.py)")
+    fam = _load(path, f"gpbench_family_{name}")
+    kernel = config.get("kernel")
+    if kernel not in fam.KERNELS:
+        raise Refused(f"config {config_name}: family {name} has no "
+                      f"reference for kernel {kernel!r} (it computes "
+                      f"{', '.join(fam.KERNELS)})")
+    if kind is not None and kind not in fam.KINDS:
+        raise Refused(f"config {config_name}: family {name} does not serve "
+                      f"traffic of kind {kind!r} (it serves "
+                      f"{', '.join(fam.KINDS)})")
+    return fam
+
+
+def _load(path: Path, module: str):
+    spec = importlib.util.spec_from_file_location(module, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def cell_metrics(manifest: dict, workload: str, trace: bool) -> list:
     """The metrics entries a run of `workload` reports: with trace the
     per-layer ones, else the end-to-end ones.  An entry without
@@ -111,11 +150,7 @@ def reader(root: Path, name: str):
     path = bench_dir(root) / "metrics" / f"{name}.py"
     if not path.exists():
         path = path.with_name(f"{name.split('.', 1)[0]}.py")
-    spec = importlib.util.spec_from_file_location(
-        f"gpbench_metric_{name.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load(path, f"gpbench_metric_{name.replace('.', '_')}").read
 
 
 def forbidden_modules() -> list:
@@ -125,23 +160,25 @@ def forbidden_modules() -> list:
 
 def run(root, workload: str, seed: int, seconds: float, trace: bool,
         device="cuda", t_start=None, program=None, overrides=None) -> dict:
-    """One run; returns the result line (a dict).  `program(device, dtype,
-    spans)` builds the system under test (program.Port by default; the
-    control and the tests put another in its place).  `overrides` merges
-    {"config": {...}, "traffic": {...}} into the files' values (the tests
-    shrink a cell so)."""
+    """One run; returns the result line (a dict).  `program(family,
+    config, device, spans)` builds the system under test (program.Port by
+    default; the control and the tests put another in its place).
+    `overrides` merges {"config": {...}, "traffic": {...}} into the
+    files' values (the tests shrink a cell so).  Refused, before set-up,
+    where the cell cannot run as written (family())."""
     t_start = time.perf_counter() if t_start is None else t_start
     manifest, cell, config, traffic, limits = resolve(root, workload)
     for key, part in (overrides or {}).items():
         {"config": config, "traffic": traffic}[key].update(part)
+    fam = family(root, cell["config"], config, traffic["kind"])
     device = torch.device(device)
     r = Run(workload, cell, config, traffic, int(seed), float(seconds),
-            bool(trace), device)
+            bool(trace), device, fam)
     if program is None:
         from .program import Port as program
     from .program import NO_SPANS, Spans
     spans = Spans() if trace else NO_SPANS
-    prog = program(device, config["dtype"], spans)
+    prog = program(fam, config, device, spans)
     loop = KINDS[traffic["kind"]](r, prog)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()

@@ -1,6 +1,8 @@
 """The comparison that decides `correct`: each traffic kind's answers,
-taken from the timed window, against the plain reference (reference/gp.py)
-in float64 on the same inputs, regenerated from the seed.
+taken from the timed window, against the plain reference of the
+configuration's model family (`ref`, families/<family>.py Reference: for
+the exact family reference/gp.py) in float64 on the same inputs,
+regenerated from the seed.  Nothing here depends on the family.
 
 Every number is a gap where lower is better, held to `value <= limit`
 (the cell's limits, cells/<cell>.json); each function returns
@@ -13,7 +15,7 @@ Every number is a gap where lower is better, held to `value <= limit`
          descend from the library's start reads 0 or more
   pgrad  the reference's gradient of NLL / N at the point the fit
          returned, in the optimizer's standardized units, projected onto
-         the library's box (reference.projected_gradient): how far from
+         the library's box (ref.projected_gradient): how far from
          a stationary point the fit stopped
   mu, s2, dmu, ds2
          max |a - a_ref| / max |a_ref| of the posterior mean, variance and
@@ -24,8 +26,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-
-from .reference import gp as ref
 
 F64 = "float64"
 
@@ -49,7 +49,7 @@ def _worst(acc: dict, nums: dict) -> None:
         acc[k] = max(acc.get(k, -np.inf), v)
 
 
-def fit(answers, data, device) -> dict:
+def fit(ref, answers, data, device) -> dict:
     """answers: [(key, answer)]; data(key) -> (X, y, Xte) of that fit."""
     acc = {}
     for key, ans in answers:
@@ -58,9 +58,9 @@ def fit(answers, data, device) -> dict:
         n = x.shape[0]
         h = _t(ans["hyp"], device)
         nll_ref = ref.nll(x, yv, h, F64)
-        _, L, alpha = ref.posterior(x, yv, h, F64)
-        mu, s2 = ref.predict(x, h, L, alpha, _t(Xte, device), F64)
-        del L
+        post = ref.posterior(x, yv, h, F64)
+        mu, s2 = ref.predict(post, _t(Xte, device), F64)
+        del post
         ys, y_mu, y_sigma = ref.standardized(yv)
         v = _t(ans["x"], device)
         _, g = ref.nll_grad(x, ys, v, F64)
@@ -77,18 +77,18 @@ def fit(answers, data, device) -> dict:
     return acc
 
 
-def predict(answers, X, y, hyp, query, device) -> dict:
+def predict(ref, answers, X, y, hyp, query, device) -> dict:
     """answers: [(i, (mu, s2))]; query(i) -> the rows of request i."""
     x, yv, h = _t(X, device), _t(y, device), _t(hyp, device)
-    _, L, alpha = ref.posterior(x, yv, h, F64)
+    post = ref.posterior(x, yv, h, F64)
     acc = {}
     for i, (mu_p, s2_p) in answers:
-        mu, s2 = ref.predict(x, h, L, alpha, _t(query(i), device), F64)
+        mu, s2 = ref.predict(post, _t(query(i), device), F64)
         _worst(acc, {"mu": rel_gap(mu_p, mu), "s2": rel_gap(s2_p, s2)})
     return acc
 
 
-def bo(answers, rows, cands, hyp, device) -> dict:
+def bo(ref, answers, rows, cands, hyp, device) -> dict:
     """answers: [((e, p), (mu, dmu, s2, ds2))]; rows(e, p) -> (X, y) the
     model held at step p of episode e; cands(e, p) -> its candidates."""
     h = _t(hyp, device)
@@ -96,9 +96,8 @@ def bo(answers, rows, cands, hyp, device) -> dict:
     for (e, p), got in answers:
         X, y = rows(e, p)
         x, yv = _t(X, device), _t(y, device)
-        _, L, alpha = ref.posterior(x, yv, h, F64)
-        want = ref.predict_with_grad(x, h, L, alpha, _t(cands(e, p), device),
-                                     F64)
+        post = ref.posterior(x, yv, h, F64)
+        want = ref.predict_with_grad(post, _t(cands(e, p), device), F64)
         _worst(acc, {k: rel_gap(a, b) for k, a, b
                      in zip(("mu", "dmu", "s2", "ds2"), got, want)})
     return acc

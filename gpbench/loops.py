@@ -15,7 +15,8 @@ device.  Each loop:
                counters;
   profile(seg) runs a bounded piece of the same work under the profiler
                (trace.Segment), after the window;
-  judge()      compares the window's answers with the reference (judge.py).
+  judge()      compares the window's answers with the plain reference of
+               the configuration's model family (judge.py).
 """
 
 from __future__ import annotations
@@ -48,14 +49,19 @@ class _Loop:
     def close(self):
         self.prog.close()
 
+    def reference(self):
+        """The plain reference of the run's model family."""
+        return self.run.family.Reference(self.cfg)
+
 
 class FitLoop(_Loop):
-    """Back-to-back fits: GP(X, y), train() from the library's start, then
-    the held-out rows' mean and variance.  The data sets are a fixed pool
-    of `pool` (drawn from `pool_seed`), fitted in passes, each pass in an
-    order drawn from --seed; the window closes at the end of the pass
-    that crosses --seconds.  A fit's work (its evaluations) depends on its
-    data, so every seed gets the same set of fits, in another order.
+    """Back-to-back fits: the family's model of (X, y) (GP in the exact
+    family), train() from the library's start, then the held-out rows'
+    mean and variance.  The data sets are a fixed pool of `pool` (drawn
+    from `pool_seed`), fitted in passes, each pass in an order drawn from
+    --seed; the window closes at the end of the pass that crosses
+    --seconds.  A fit's work (its evaluations) depends on its data, so
+    every seed gets the same set of fits, in another order.
     After the window, untimed, one more fit of a data set drawn from
     --seed itself, so that the judged answers differ from seed to seed."""
 
@@ -107,7 +113,7 @@ class FitLoop(_Loop):
         self.run.counters["profile_evals"].append(ans["evals"])
 
     def judge(self, device):
-        return judge.fit(self.run.answers,
+        return judge.fit(self.reference(), self.run.answers,
                          lambda key: self.data(key[1], key[0]), device)
 
 
@@ -144,15 +150,17 @@ class PredictLoop(_Loop):
 
     def judge(self, device):
         X, y = make_data(self.n, self.d, stream(self.run, DATA, 0))
-        return judge.predict(self.run.answers, X, y, self.cfg["hyp"],
-                             lambda i: self.query(QUERY, i), device)
+        return judge.predict(self.reference(), self.run.answers, X, y,
+                             self.cfg["hyp"], lambda i: self.query(QUERY, i),
+                             device)
 
 
 class BoLoop(_Loop):
     """Episodes of a BO loop at the configuration's hyperparameters.  An
-    episode rebuilds BucketedGP at the set-up rows (its first step), then
-    runs `steps` steps: the mean, variance and their input gradients at
-    `candidates` rows, read back, then absorb() of the step's pool row.
+    episode rebuilds the model (BucketedGP in the exact family) at the
+    set-up rows (its first step), then runs `steps` steps: the mean,
+    variance and their input gradients at `candidates` rows, read back,
+    then absorb() of the step's pool row.
     The pool rows do not depend on the answers, so every run of a seed
     serves the same traffic."""
 
@@ -167,8 +175,7 @@ class BoLoop(_Loop):
             self.prog.bo_absorb(px[p], py[p])
 
     def _build(self):
-        self.prog.bo_build(self.X0, self.y0, self.cfg["hyp"],
-                           self.cfg["bucket"])
+        self.prog.bo_build(self.X0, self.y0, self.cfg["hyp"])
 
     def episode(self, tag, e):
         s, c = self.tr["steps"], self.tr["candidates"]
@@ -241,8 +248,8 @@ class BoLoop(_Loop):
             return C.reshape(s, c, self.d)[p]
 
         self.run.answers = [(k, self.answered[k]) for k in self.sample()]
-        return judge.bo(self.run.answers, rows, cands, self.cfg["hyp"],
-                        device)
+        return judge.bo(self.reference(), self.run.answers, rows, cands,
+                        self.cfg["hyp"], device)
 
 
 KINDS = {"fit": FitLoop, "predict": PredictLoop, "bo": BoLoop}

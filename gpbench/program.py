@@ -1,11 +1,13 @@
 """The system under test, behind the three calls each traffic kind makes.
 
-`Port` drives gp_tpu_torch through its public entry points (GP.train,
-GP.batch_predict, BucketedGP.absorb, the *_with_grad predictions).  It is
-the only module of the benchmark that imports the program, and it
-imports it on first use.  Every answer comes back as float64 numpy on the
-host, so that the judge (judge.py) and the reference never see the
-program's tensors.
+`Port` drives gp_tpu_torch through its public entry points: the model
+that the configuration's family builds for each traffic kind
+(families/<family>.py `model`), then its GP surface (train,
+batch_predict, absorb, the *_with_grad predictions).  It and the
+families' program side are the only code of the benchmark that imports
+the program, and they import it on first use.  Every answer comes back
+as float64 numpy on the host, so that the judge (judge.py) and the
+reference never see the program's tensors.
 
 `Spans` times a call into a layer on the host's clock, adding no
 synchronization: the calls it wraps end with their results read back on
@@ -52,14 +54,16 @@ def _np(t) -> np.ndarray:
 
 
 class Port:
-    """gp_tpu_torch on `device` in `dtype` (SE-ARD, the Cholesky solver)."""
+    """gp_tpu_torch on `device`: the models of `family` for `config`, in
+    the configuration's dtype."""
 
-    def __init__(self, device, dtype: str, spans=NO_SPANS):
+    def __init__(self, family, config: dict, device, spans=NO_SPANS):
         import gp_tpu_torch  # noqa: F401  (sets the precision policy)
         from gp_tpu_torch.ops import _build
 
+        self.family, self.config = family, config
         self.device = torch.device(device)
-        self.dtype = getattr(torch, dtype)
+        self.dtype = getattr(torch, config["dtype"])
         self.spans = spans
         self.model = None
         if self.device.type == "cuda":
@@ -73,12 +77,15 @@ class Port:
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
 
+    def _model(self, kind: str, X, y):
+        return self.family.model(kind, X, y, self.config, self.dtype,
+                                 self.device)
+
     # -- a fit: train() from the defaults, then the held-out predictions --
     def fit(self, X, y, Xte, max_evals=None, segment=None) -> dict:
         """`max_evals` caps the optimizer's budget; `segment` (a
         trace.Segment) is profiled around train() alone."""
-        from gp_tpu_torch import GP
-        gp = GP(X, y, dtype=self.dtype, device=self.device)
+        gp = self._model("fit", X, y)
         if max_evals is not None:
             gp._MAX_EVAL = max_evals
         self.model = gp
@@ -97,8 +104,7 @@ class Port:
 
     # -- serving from a posterior at fixed hyperparameters ---------------
     def serve_setup(self, X, y, hyp) -> None:
-        from gp_tpu_torch import GP
-        gp = GP(X, y, dtype=self.dtype, device=self.device)
+        gp = self._model("predict", X, y)
         gp.set_fixed(True)
         gp.train(init_hyps=np.asarray(hyp, np.float64))
         self.model = gp
@@ -107,12 +113,10 @@ class Port:
         mu, s2 = self.model.batch_predict(Xq)
         return _np(mu), _np(s2)
 
-    # -- the BO loop: a BucketedGP at fixed hyperparameters ---------------
-    def bo_build(self, X, y, hyp, bucket: int) -> None:
-        from gp_tpu_torch import BucketedGP
+    # -- the BO loop: a model that absorbs, at fixed hyperparameters -----
+    def bo_build(self, X, y, hyp) -> None:
         self.model = None
-        bo = BucketedGP(X, y, bucket=bucket, dtype=self.dtype,
-                        device=self.device)
+        bo = self._model("bo", X, y)
         bo.set_fixed(True)
         bo.train(init_hyps=np.asarray(hyp, np.float64))
         self.model = bo

@@ -181,7 +181,7 @@ def reduce(work_ops: list, trace, window_s: float) -> dict:
 
 
 def _measure(run):
-    port = TracedPort(run.device, run.config["dtype"])
+    port = TracedPort(run.family, run.config, run.device)
     tracing = port.tracer()
     if tracing is None:
         port.close()

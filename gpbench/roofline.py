@@ -58,10 +58,10 @@ def fit_eval_flops(n: int, d: int) -> float:
     return n ** 3 + (2 * d + 5) * n ** 2 + 4 * n ** 2 * (d + 1)
 
 
-def predict_request_flops(n: int, d: int, m: int) -> float:
-    """Model operations of one variance prediction of m rows from a
-    posterior that caches no factor: the K build and its Cholesky factor
-    (n^3 / 3), the (m, n) cross covariance, the mean's matvec and one
-    triangular solve of the m columns (n^2 m)."""
-    return (n ** 3 / 3 + (2 * d + 5) * n ** 2 + (2 * d + 5) * m * n
-            + 2 * m * n + n ** 2 * m)
+def predict_request_flops(n: int, d: int, m: int, refactors: bool) -> float:
+    """Model operations of one mean-and-variance prediction of m rows:
+    the (m, n) cross covariance, the mean's matvec and one triangular
+    solve of the m columns (n^2 m); where the posterior caches no factor
+    (`refactors`), also the K build and its Cholesky factor (n^3 / 3)."""
+    head = n ** 3 / 3 + (2 * d + 5) * n ** 2 if refactors else 0
+    return head + (2 * d + 5) * m * n + 2 * m * n + n ** 2 * m

@@ -18,8 +18,10 @@ PY = sorted(p for p in (ROOT / "gpbench").rglob("*.py")
 
 
 def _imports(path):
+    """The top-level names a source file (or a parsed module) imports."""
+    tree = path if isinstance(path, ast.AST) else ast.parse(path.read_text())
     out = set()
-    for node in ast.walk(ast.parse(path.read_text())):
+    for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             out |= {a.name.split(".")[0] for a in node.names}
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -35,6 +37,46 @@ def test_sources_import_no_jax(path):
 def test_reference_imports_nothing_of_the_program():
     for path in (ROOT / "gpbench" / "reference").glob("*.py"):
         assert _imports(path) <= {"__future__", "math", "torch", "numpy"}
+
+
+FAMILY_CHILD = """
+import json, sys
+import torch
+from gpbench import harness
+from gpbench.synth import make_data
+cfg = harness.load_json("gpbench/configs/{config}.json")
+fam = harness.family(".", "{config}", cfg)
+ref = fam.Reference(cfg)
+X, y = make_data(40, cfg["d"], 1)
+x, yv = torch.as_tensor(X), torch.as_tensor(y)
+h = ref.default_hyp(x, yv)
+ref.nll_grad(x, ref.standardized(yv)[0], h, "float64")
+ref.predict_with_grad(ref.posterior(x, yv, h, "float64"), x[:3], "float64")
+fam.fit_eval_flops(cfg), fam.predict_request_flops(cfg, 3)
+print(json.dumps(sorted({{m.split(".", 1)[0] for m in sys.modules}})))
+"""
+
+
+@pytest.mark.parametrize("config", ["bundled_8k", "stream_51k"])
+def test_a_familys_reference_and_counts_load_nothing_of_the_program(config):
+    """The family file imports the program only to build a model: at its
+    top level nothing of it, and its reference and counts run without
+    it, in a fresh process."""
+    fam = json.loads((ROOT / "gpbench" / "configs"
+                      / f"{config}.json").read_text())["family"]
+    tree = ast.parse((ROOT / "gpbench" / "families"
+                      / f"{fam}.py").read_text())
+    top = _imports(ast.Module(body=[n for n in tree.body if isinstance(
+        n, (ast.Import, ast.ImportFrom))], type_ignores=[]))
+    assert top <= {"__future__", "typing", "math", "torch", "numpy",
+                   "gpbench"}
+    out = subprocess.run([sys.executable, "-c",
+                          FAMILY_CHILD.format(config=config)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    loaded = set(json.loads(out.stdout.strip().splitlines()[-1]))
+    assert "gpbench" in loaded
+    assert not loaded & {"gp_tpu_torch", *FORBIDDEN}
 
 
 @pytest.mark.parametrize("path", PY, ids=lambda p: p.name)

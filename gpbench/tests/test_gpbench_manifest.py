@@ -91,7 +91,8 @@ def test_a_cell_added_from_files_alone(tmp_path):
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(m))
     g = tmp_path / "gpbench"
     (g / "configs" / "tiny_fit.json").write_text(json.dumps(
-        {"n": 60, "d": 8, "dtype": "float64"}))
+        {"family": "exact", "kernel": "se_ard", "n": 60, "d": 8,
+         "dtype": "float64"}))
     (g / "traffic" / "quick_fits.json").write_text(json.dumps(
         {"kind": "fit", "pool": 2, "pool_seed": 1, "heldout": 10,
          "warm_evals": 2,

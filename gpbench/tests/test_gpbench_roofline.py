@@ -21,6 +21,9 @@ def test_model_flops():
     # an evaluation at N = 8000, d = 24 is N^3 and O(N^2 d) besides
     f = roofline.fit_eval_flops(8000, 24)
     assert 8000 ** 3 < f < 1.03 * 8000 ** 3
-    # a 51200-row request is its factor (N^3 / 3) and one solve (N^2 m)
-    f = roofline.predict_request_flops(51200, 10, 2000)
+    # a 51200-row request that refactors is its factor (N^3 / 3) and one
+    # solve (N^2 m); from a cached factor, the solve
+    f = roofline.predict_request_flops(51200, 10, 2000, refactors=True)
     assert f == pytest.approx(51200 ** 3 / 3 + 51200 ** 2 * 2000, rel=0.01)
+    f = roofline.predict_request_flops(8000, 24, 2000, refactors=False)
+    assert f == pytest.approx(8000 ** 2 * 2000, rel=0.03)
