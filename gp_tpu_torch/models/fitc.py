@@ -12,6 +12,12 @@ The Woodbury/Nystrom algebra is O(N M^2) in GEMMs:
 Kuu = K(U, U) and Kxu = K(X, U) are K2 builds (ops/se_tile.py); the
 reference's analytic hyp gradient (FITC.cpp:237-315) is torch autograd of
 this objective, as gp_tpu takes jax.value_and_grad (models/sparse.py).
+
+Spans (utils/profiling.py), under sparse.value_and_grad's `objective`:
+`objective.kxu` the builds of diag(Kxx), Kuu and Kxu; `objective.factor`
+each M x M Cholesky (Luu, LA); `objective.nystrom` V = Luu^-1 Kux, its
+column norms, Gamma and the weighted Gram Kux Gamma^-1 Kxu.  The
+posterior (set_k) runs under `posterior`.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 
 from ..ops.chol import chol_logdet, chol_ok, chol_solve, library_cholesky
 from ..ops.chol import solve_lower
+from ..utils.profiling import host_read, span
 from .base import (debug_decomp_enabled, debug_print_nll_decomp, hyp_mean,
                    hyp_sn2)
 from .sparse import (SparseFns, SparseGPBase, eye_like, inf_nll, local_fit,
@@ -44,22 +51,25 @@ def nll_raw(kernel, hyp, x, y, u, jitter):
     sn2 = hyp_sn2(hyp)
     r = y - hyp_mean(hyp)
 
-    sf2 = kernel.diag_k(chyp, x)
-    Kuu = kernel.k(chyp, u, u) + jitter * eye_like(m, x)
-    Kxu = kernel.k(chyp, x, u)
+    with span("objective.kxu"):
+        sf2 = kernel.diag_k(chyp, x)
+        Kuu = kernel.k(chyp, u, u) + jitter * eye_like(m, x)
+        Kxu = kernel.k(chyp, x, u)
 
-    Luu = library_cholesky(Kuu)
-    V = solve_lower(Luu, Kxu.T)                     # (M, N): Luu^-1 Kux
-    qdiag = torch.sum(V * V, dim=0)                 # diag(Kxu Kuu^-1 Kux)
-    # the Nystrom residual sf2 - qdiag is >= 0 mathematically; the clamp
-    # suppresses rounding (it is 0 exactly when an inducing point is a
-    # data point).  torch.maximum, as jnp.maximum, halves the gradient at
-    # a tie
-    gamma = 1.0 + torch.maximum(sf2 - qdiag, zero_like(sf2)) / sn2
-    inv_gamma = 1.0 / gamma
-
-    A = sn2 * Kuu + (Kxu.T * inv_gamma) @ Kxu       # (M, M)
-    LA = library_cholesky(A)
+    with span("objective.factor"):
+        Luu = library_cholesky(Kuu)
+    with span("objective.nystrom"):
+        V = solve_lower(Luu, Kxu.T)                 # (M, N): Luu^-1 Kux
+        qdiag = torch.sum(V * V, dim=0)             # diag(Kxu Kuu^-1 Kux)
+        # the Nystrom residual sf2 - qdiag is >= 0 mathematically; the
+        # clamp suppresses rounding (it is 0 exactly when an inducing
+        # point is a data point).  torch.maximum, as jnp.maximum, halves
+        # the gradient at a tie
+        gamma = 1.0 + torch.maximum(sf2 - qdiag, zero_like(sf2)) / sn2
+        inv_gamma = 1.0 / gamma
+        A = sn2 * Kuu + (Kxu.T * inv_gamma) @ Kxu   # (M, M)
+    with span("objective.factor"):
+        LA = library_cholesky(A)
 
     t1 = Kxu.T @ (inv_gamma * r)                    # (M,)
     fit_term = torch.dot(inv_gamma * r,
@@ -99,7 +109,8 @@ def set_k(kernel, hyp, x, y, u, jitter0, max_tries: int = 64):
     """FITC::_setK (FITC.cpp:165-200): factor Kuu + jI and A, doubling the
     jitter until both are SPD; the first attempt leaves A un-jittered, the
     retries add the jitter to A too (the reference's loop shape).  gp_tpu's
-    while_loop is a Python loop with one host sync per try.
+    while_loop is a Python loop with one host sync per try
+    (profiling.host_read, "sparse_set_k").
 
     Returns (Luu, LA, alpha, jitter, ok)."""
     n, d = x.shape
@@ -124,15 +135,20 @@ def set_k(kernel, hyp, x, y, u, jitter0, max_tries: int = 64):
         LA = library_cholesky(A + a_jitter * eye)
         return Luu, LA, inv_gamma
 
+    def ok(Luu, LA):
+        return host_read(chol_ok(Luu) & chol_ok(LA), "sparse_set_k")
+
     jitter = torch.as_tensor(jitter0, dtype=x.dtype, device=x.device)
     Luu, LA, inv_gamma = attempt(jitter, torch.zeros_like(jitter))
+    good = ok(Luu, LA)
     tries = 0
-    while not bool(chol_ok(Luu) & chol_ok(LA)) and tries < max_tries:
+    while not good and tries < max_tries:
         jitter = jitter * 2.0
         Luu, LA, inv_gamma = attempt(jitter, jitter)
+        good = ok(Luu, LA)
         tries += 1
     alpha = chol_solve(LA, Kxu.T @ (inv_gamma * r))
-    return Luu, LA, alpha, jitter, bool(chol_ok(Luu) & chol_ok(LA))
+    return Luu, LA, alpha, jitter, good
 
 
 def _s2_raw(kernel, hyp, Ksu, Luu, LA, xs):
@@ -181,7 +197,8 @@ class FITC(SparseGPBase):
     _fns = SparseFns(nll_raw, set_k, predict, predict_s2_with_grad)
 
     def _update_posterior(self):
-        Luu, LA, alpha, jitter, ok = self._set_k()
+        with span("posterior"):
+            Luu, LA, alpha, jitter, ok = self._set_k()
         if not ok:
             # FITC::_setK loops until SPD (FITC.cpp:184-198): it never
             # serves a failed factor

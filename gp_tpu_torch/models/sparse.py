@@ -38,6 +38,7 @@ import torch
 
 from ..config import DEFAULT_SEED, INF
 from ..optim.lbfgsb import lbfgsb_impl
+from ..utils.profiling import span
 from .base import (GPBase, _np, from_opt_vec, hyp_mean, hyp_sn2,
                    sanitize_value_and_grad)
 
@@ -116,12 +117,15 @@ def inf_nll(v):
 
 def value_and_grad(nll_raw, kernel, noise_free: bool, vec, x, y, u, jitter):
     """(value, grad) of nll_raw over the optimization vector by autograd
-    (gp_tpu: jax.value_and_grad), INF-sanitized."""
-    v = vec.detach().requires_grad_(True)
-    with torch.enable_grad():
-        f = nll_raw(kernel, from_opt_vec(v, noise_free), x, y, u, jitter)
-        g, = torch.autograd.grad(f, v)
-    return sanitize_value_and_grad(f.detach(), g)
+    (gp_tpu: jax.value_and_grad), INF-sanitized.  Spans: `objective`
+    whole, `objective.grad` the backward (nll_raw opens the forward's)."""
+    with span("objective"):
+        v = vec.detach().requires_grad_(True)
+        with torch.enable_grad():
+            f = nll_raw(kernel, from_opt_vec(v, noise_free), x, y, u, jitter)
+            with span("objective.grad"):
+                g, = torch.autograd.grad(f, v)
+        return sanitize_value_and_grad(f.detach(), g)
 
 
 def search_value(nll_raw, kernel, noise_free: bool, vec, x, y, u, jitter):

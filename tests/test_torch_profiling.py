@@ -1,13 +1,15 @@
 """The program's tracer (gp_tpu_torch/utils/profiling.py) on the CPU in
 float64: off it records nothing, on it nests spans, counts and reads, and
 takes the kernel wrappers' launch deltas; the spans sit where the
-objective, absorb and the predictions do their work."""
+objective, absorb, the predictions and FITC's objective and posterior do
+their work."""
 
 import numpy as np
 import pytest
 import torch
 
-from gp_tpu_torch import GP, BucketedGP
+from gp_tpu_torch import FITC, GP, BucketedGP
+from gp_tpu_torch.models import fitc
 from gp_tpu_torch.ops import chol_block, se_tile
 from gp_tpu_torch.utils import profiling
 
@@ -118,3 +120,55 @@ def test_bucketed_absorb_and_acquisition_spans_and_the_refactor_counter():
             "predict/predict.solve"} == paths - {
                 "absorb", "predict", "predict.mean_grad", "predict.var_grad"}
     assert _n(t, "predict.var_grad") == 12 and _n(t, "predict") == 1
+
+
+def _fitc(n=90, m=16):
+    X, y = _data(n, 2)
+    gp = FITC(X, y, device="cpu")
+    gp.set_inducing(X[-m:])
+    return gp
+
+
+def test_fitc_evaluation_spans_and_one_set_k_read():
+    gp = _fitc()
+    gp._MAX_EVAL = 6
+    gp.train()                      # tracer off: nothing to record into
+    with profiling.tracing() as t:
+        pass
+    gp.train()
+    assert not t.spans and not t.counters
+    with profiling.tracing() as t:
+        gp.train()
+    evals = gp.last_opt_result.evals
+    objective = [i for i, s in enumerate(t.spans) if s[0] == "objective"]
+    assert len(objective) == evals > 1
+    for i in objective:
+        _, parent, b, e = t.spans[i]
+        assert t.spans[parent][0] == "train"
+        kids = [s for s in t.spans if s[1] == i]
+        assert [s[0] for s in kids] == [
+            "objective.kxu", "objective.factor", "objective.nystrom",
+            "objective.factor", "objective.grad"]
+        assert all(b <= s[2] <= s[3] <= e for s in kids)
+    assert _n(t, "train") == _n(t, "posterior") == 1
+    # the start and final nll() run the same stages under "nll"
+    assert {t.path(i) for i in range(len(t.spans))
+            if t.spans[i][0] == "objective.kxu"} == {
+                "train/objective/objective.kxu", "train/nll/objective.kxu"}
+    assert t.counters["host_sync.sparse_set_k"] == 1
+
+
+def test_fitc_set_k_reads_once_a_try(monkeypatch):
+    gp = _fitc()
+    calls = []
+    real = fitc.chol_ok
+
+    def failing_twice(L):
+        calls.append(1)
+        return real(L) & (len(calls) > 4)   # two calls a try
+    monkeypatch.setattr(fitc, "chol_ok", failing_twice)
+    gp.set_fixed(True)
+    with profiling.tracing() as t:
+        gp.train(init_hyps=gp.get_default_hyps())
+    assert t.counters["host_sync.sparse_set_k"] == 3
+    assert gp._jitter_u == 4 * (0.1 * 1e-3) ** 2
